@@ -1,0 +1,12 @@
+from .numerics import (
+    NoiseSource,
+    batch_reduce,
+    float32_precision,
+    normal_sample,
+    split_feature,
+    squeeze2d,
+    unsqueeze2d,
+)
+
+__all__ = ["NoiseSource", "batch_reduce", "float32_precision",
+           "normal_sample", "split_feature", "squeeze2d", "unsqueeze2d"]
