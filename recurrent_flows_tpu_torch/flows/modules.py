@@ -1,11 +1,16 @@
-"""Glow building blocks (NHWC) in the sampling direction, the counterparts
-of ``recurrent_flows_tpu.flows.modules``.
+"""Glow building blocks (NHWC), the counterparts of
+``recurrent_flows_tpu.flows.modules``: ``forward`` is the density
+direction (x -> z, with the log-determinant), ``reverse`` the sampling
+direction.
 
-The forward (density) direction, data-dependent init and BatchNormFlow
-come with the training slice (ROADMAP.md queue 1, item 1). Weight folds
-are always on, as in the JAX package's default: the actnorm of a
-``Conv2dNorm`` and the gain of a ``Conv2dZeros`` are folded into their
-conv kernels, and the step actnorm into the inverse 1x1.
+Weight folds are always on, as in the JAX package's default: the actnorm
+of a ``Conv2dNorm`` and the gain of a ``Conv2dZeros`` are folded into their
+conv kernels, and the step actnorm into the 1x1 (forward through the
+``actnorm_invconv`` kernel). The data-dependent-init pass (``ddi=True``,
+see ``flows/ddi.py``) is the exception: there every ActNorm runs unfolded
+on its own input, sets its ``bias``/``logs`` from it in place, and uses
+the fresh values. BatchNormFlow is not ported yet (ROADMAP.md queue 1,
+item 1).
 """
 
 from __future__ import annotations
@@ -15,20 +20,33 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import Conv2d, act, conv_nhwc
-from ..ops.fused import coupling_transform
-from ..ops.glowchain import clamp
-from ..utils.numerics import split_feature
+from ..ops.fused import actnorm_invconv, coupling_transform
+from ..ops.glowstep import clamp
+from ..utils.numerics import batch_reduce, normal_log_prob, split_feature
 
 
 class ActNorm(nn.Module):
-    """Per-channel y = (x + bias)·e^logs. In the sampling direction it is
-    always folded into the adjacent conv or 1x1, so it holds parameters
-    only; its elementwise pass comes with the forward flow."""
+    """Per-channel y = (x + bias)·e^logs; logdet += Σ logs · H·W. Outside
+    the DDI pass it is folded into the adjacent conv or 1x1, so only its
+    parameters are read."""
 
     def __init__(self, num_channels: int, *, device=None):
         super().__init__()
         self.bias = nn.Parameter(torch.zeros(num_channels, device=device))
         self.logs = nn.Parameter(torch.zeros(num_channels, device=device))
+
+    def forward(self, x, logdet=None, ddi: bool = False):
+        """With ``ddi`` (under ``torch.no_grad()``), first set ``bias`` and
+        ``logs`` in place so that the output has zero mean and unit
+        standard deviation (ddof=1) per channel over this input."""
+        if ddi:
+            flat = x.reshape(-1, x.shape[-1])
+            self.bias.copy_(-flat.mean(0))
+            self.logs.copy_(torch.log(1.0 / (flat.std(0, unbiased=True) + 1e-6)))
+        y = (x + self.bias) * torch.exp(self.logs)
+        if logdet is not None:
+            logdet = logdet + self.logs.sum() * (x.shape[1] * x.shape[2])
+        return y, logdet
 
 
 class InvConv(nn.Module):
@@ -65,6 +83,22 @@ class InvConv(nn.Module):
                                               unitriangular=True)
         return u_inv @ l_inv @ self.p.T
 
+    def forward(self, x, logdet=None, fold_bias=None, fold_logs=None):
+        """x·Wᵀ; with ``fold_bias``/``fold_logs`` the step actnorm before it
+        is folded in, ((x + b)·e^s)·Wᵀ, through the ``actnorm_invconv``
+        kernel, and its logdet Σ s·H·W is accounted here."""
+        w = self.weight(reverse=False)
+        dlogdet = self.log_s.sum()
+        if fold_bias is not None:
+            z = actnorm_invconv(x.contiguous(), fold_bias, fold_logs,
+                                w.contiguous())
+            dlogdet = dlogdet + fold_logs.sum()
+        else:
+            z = x @ w.T
+        if logdet is not None:
+            logdet = logdet + dlogdet * (x.shape[1] * x.shape[2])
+        return z, logdet
+
     def reverse(self, x, fold_bias, fold_logs):
         """Inverse 1x1, then the inverse of the step actnorm folded in:
         (y·W⁻ᵀ)·e^{-s} - b == y·(diag(e^{-s})·W⁻¹)ᵀ - b."""
@@ -74,7 +108,8 @@ class InvConv(nn.Module):
 
 class Conv2dNorm(nn.Module):
     """Conv (kernel ~ N(0, 0.05²), no bias) + actnorm, the actnorm folded
-    into the kernel: conv_{W·e^logs}(x) + b·e^logs."""
+    into the kernel: conv_{W·e^logs}(x) + b·e^logs. The DDI pass runs the
+    actnorm unfolded, on the raw conv output."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  *, device=None, generator=None):
@@ -83,7 +118,9 @@ class Conv2dNorm(nn.Module):
                            kernel_std=0.05, device=device, generator=generator)
         self.actnorm = ActNorm(out_channels, device=device)
 
-    def forward(self, x):
+    def forward(self, x, ddi: bool = False):
+        if ddi:
+            return self.actnorm(conv_nhwc(x, self.conv.kernel), ddi=True)[0]
         g = torch.exp(self.actnorm.logs)
         return conv_nhwc(x, self.conv.kernel * g[:, None, None, None],
                          self.actnorm.bias * g)
@@ -107,8 +144,9 @@ class Conv2dZeros(nn.Module):
 
 
 class AffineCoupling(nn.Module):
-    """Conditional affine coupling with 4 clamps; the sampling direction
-    ends in the ``coupling_transform`` kernel."""
+    """Conditional affine coupling with 4 clamps: forward
+    z2' = (z2 + shift)·e^s, logdet += Σ s; both directions end in the
+    ``coupling_transform`` kernel."""
 
     def __init__(self, x_channels: int, cond_channels: int,
                  hidden_units: int = 256, non_lin: str = "relu",
@@ -126,21 +164,29 @@ class AffineCoupling(nn.Module):
         else:
             self.scale = self.scale_shift = None
 
-    def reverse(self, x, condition):
-        """(x, coupling logdet [B]) of the inverse coupling."""
+    def _transform(self, x, condition, reverse: bool, ddi: bool = False):
         z1, z2 = split_feature(x, "split")
-        h = act(self.net0(torch.cat([z1, condition], -1)), self.non_lin)
-        h = act(self.net1(h), self.non_lin)
+        h = act(self.net0(torch.cat([z1, condition], -1), ddi), self.non_lin)
+        h = act(self.net1(h, ddi), self.non_lin)
         shift, log_scale = split_feature(self.net2(h), "cross")
         s = clamp(log_scale, self.clamp_type, self.scale, self.scale_shift)
         z2, ld = coupling_transform(z2.contiguous(), shift.contiguous(),
-                                    s.contiguous(), reverse=True)
+                                    s.contiguous(), reverse=reverse)
         return torch.cat([z1, z2], -1), ld
+
+    def forward(self, x, condition, logdet=None, ddi: bool = False):
+        y, ld = self._transform(x, condition, False, ddi)
+        return y, (logdet + ld if logdet is not None else None)
+
+    def reverse(self, x, condition):
+        """(x, coupling logdet [B]) of the inverse coupling."""
+        return self._transform(x, condition, True)
 
 
 class Split2d(nn.Module):
-    """Multiscale split with a learned conditional Gaussian p(z2 | z1, cond);
-    the sampling direction draws z2 ~ N(mean, (sigma·T)²)."""
+    """Multiscale split with a learned conditional Gaussian p(z2 | z1, cond):
+    forward drops z2 and adds its log-likelihood to the objective, the
+    sampling direction draws z2 ~ N(mean, (sigma·T)²)."""
 
     def __init__(self, x_channels: int, cond_channels: int,
                  make_conditional: bool = True,
@@ -158,16 +204,26 @@ class Split2d(nn.Module):
             cin += c
         self.conv = Conv2dZeros(cin, x_channels, 3, device=device)
 
-    def reverse(self, z1, condition, noise, temperature: float = 1.0):
+    def _prior(self, z1, condition, ddi: bool = False):
+        """(mean, sigma) of p(z2 | z1, condition)."""
         h = z1
         if self.make_conditional:
-            cond = act(self.cond0(condition), self.non_lin)
-            cond = act(self.cond1(cond), self.non_lin)
+            cond = act(self.cond0(condition, ddi), self.non_lin)
+            cond = act(self.cond1(cond, ddi), self.non_lin)
             h = torch.cat([z1, cond], -1)
         mean, log_scale = split_feature(self.conv(h), "cross")
         if self.clamp_function == "softplus":
-            sigma = F.softplus(log_scale) + 1e-8
-        else:
-            sigma = torch.exp(log_scale)
+            return mean, F.softplus(log_scale) + 1e-8
+        return mean, torch.exp(log_scale)
+
+    def forward(self, x, condition, logdet=None, ddi: bool = False):
+        z1, z2 = split_feature(x, "split")
+        mean, sigma = self._prior(z1, condition, ddi)
+        if logdet is not None:
+            logdet = logdet + batch_reduce(normal_log_prob(z2, mean, sigma))
+        return z1, logdet
+
+    def reverse(self, z1, condition, noise, temperature: float = 1.0):
+        mean, sigma = self._prior(z1, condition)
         z2 = mean + sigma * temperature * noise.normal(mean)
         return torch.cat([z1, z2], -1)

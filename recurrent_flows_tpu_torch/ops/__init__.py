@@ -1,26 +1,30 @@
 """Hand-written Hopper kernels with their plain PyTorch versions."""
 
 from .fused import (
+    actnorm_invconv,
+    actnorm_invconv_ref,
     convlstm_gates,
     convlstm_gates_ref,
     coupling_transform,
     coupling_transform_ref,
 )
-from .glowchain import GlowStepParams, glowchain, glowchain_ref, glowstep_ref
+from .glowchain import glowchain, glowchain_ref
+from .glowstep import GlowStepParams, glowstep, glowstep_ref
 
-__all__ = ["GlowStepParams", "convlstm_gates", "convlstm_gates_ref",
-           "coupling_transform", "coupling_transform_ref", "glowchain",
-           "glowchain_ref", "glowstep_ref"]
+__all__ = ["GlowStepParams", "actnorm_invconv", "actnorm_invconv_ref",
+           "convlstm_gates", "convlstm_gates_ref", "coupling_transform",
+           "coupling_transform_ref", "glowchain", "glowchain_ref", "glowstep",
+           "glowstep_ref", "launch_counts", "reset_launch_counts"]
+
+_WRAPPERS = (actnorm_invconv, convlstm_gates, coupling_transform, glowchain,
+             glowstep)
 
 
 def launch_counts() -> dict:
     """Launches of each kernel wrapper since its count was last reset."""
-    return {"convlstm_gates": convlstm_gates.launches,
-            "coupling_transform": coupling_transform.launches,
-            "glowchain": glowchain.launches}
+    return {w.__name__: w.launches for w in _WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    convlstm_gates.launches = 0
-    coupling_transform.launches = 0
-    glowchain.launches = 0
+    for w in _WRAPPERS:
+        w.launches = 0

@@ -24,11 +24,12 @@ from .utils.numerics import NoiseSource
 
 
 class Predictor:
-    """Fixed-configuration inference over a model on ``device``."""
+    """Fixed-configuration inference over a model on ``device`` (the
+    card, unless the caller asks for the CPU)."""
 
     def __init__(self, model, tcfg, n_conditions: int = 5,
                  n_predictions: int = 10, temperature: float | None = None,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device="cuda"):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.tcfg = tcfg

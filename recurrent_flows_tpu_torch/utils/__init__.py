@@ -2,6 +2,9 @@ from .numerics import (
     NoiseSource,
     batch_reduce,
     float32_precision,
+    free_bits_kl,
+    normal_kl,
+    normal_log_prob,
     normal_sample,
     split_feature,
     squeeze2d,
@@ -9,4 +12,4 @@ from .numerics import (
 )
 
 __all__ = ["NoiseSource", "batch_reduce", "float32_precision",
-           "normal_sample", "split_feature", "squeeze2d", "unsqueeze2d"]
+           "free_bits_kl", "normal_kl", "normal_log_prob", "normal_sample", "split_feature", "squeeze2d", "unsqueeze2d"]

@@ -4,8 +4,11 @@
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
+
+_LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 @contextlib.contextmanager
@@ -40,6 +43,25 @@ def batch_reduce(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1).sum(-1)
 
 
+def normal_log_prob(x, mean, std):
+    """log N(x; mean, std), elementwise."""
+    return -0.5 * torch.square((x - mean) / std) - torch.log(std) - _LOG_SQRT_2PI
+
+
+def normal_kl(mean_q, std_q, mean_p, std_p):
+    """KL(N(mean_q, std_q) || N(mean_p, std_p)), elementwise."""
+    var_ratio = torch.square(std_q / std_p)
+    t1 = torch.square((mean_q - mean_p) / std_p)
+    return 0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio))
+
+
+def free_bits_kl(kl, free_bits: float = 0.0, eps: float = 1e-6):
+    """Elementwise floor of the KL at ``free_bits`` (off below ``eps``)."""
+    if free_bits < eps:
+        return kl
+    return torch.clamp(kl, min=free_bits)
+
+
 def normal_sample(mean: torch.Tensor, std: torch.Tensor,
                   eps: torch.Tensor) -> torch.Tensor:
     """Reparameterized draw from N(mean, std) with an explicit eps."""
@@ -62,7 +84,7 @@ def unsqueeze2d(x: torch.Tensor) -> torch.Tensor:
 
 
 class NoiseSource:
-    """Standard-normal draws, taken in call order.
+    """Standard-normal (and uniform) draws, taken in call order.
 
     Either fresh from a ``torch.Generator`` on the model's device, or
     replayed from a sequence of arrays (so a test can inject the exact
@@ -81,6 +103,17 @@ class NoiseSource:
         if self._replay is None:
             return torch.randn(like.shape, generator=self.generator,
                                device=like.device, dtype=like.dtype)
+        return self._next(like)
+
+    def uniform(self, like: torch.Tensor, low: float, high: float) -> torch.Tensor:
+        """U[low, high) of ``like``'s shape (a replayed draw is taken as it is)."""
+        if self._replay is None:
+            u = torch.rand(like.shape, generator=self.generator,
+                           device=like.device, dtype=like.dtype)
+            return low + (high - low) * u
+        return self._next(like)
+
+    def _next(self, like: torch.Tensor) -> torch.Tensor:
         try:
             eps = next(self._replay)
         except StopIteration:

@@ -97,7 +97,7 @@ def glowstep_pair():
     cond = jnp.asarray(np.random.default_rng(1).standard_normal((2, 8, 8, CC)), jnp.float32)
     v = jax.jit(JGlowStep(C, cfg).init)(jax.random.key(2), x, cond)
     v = {"params": U.perturb(v["params"], 3), "consts": v["consts"]}
-    step = U.port_from(tglow.GlowStep(C, CC, cfg), v)
+    step = U.port_from(tglow.GlowStep(C, CC, U.to_port(cfg)), v)
     return cfg, v, step, np.asarray(x), np.asarray(cond)
 
 
@@ -159,7 +159,7 @@ def test_listglow_sample_matches_jax(listglow_vars, monkeypatch, chain_impl):
     ref = JListGlow(1, IMG, cfg).apply(
         v, None, [jnp.asarray(c) for c in conds], jnp.asarray(base), key,
         temperature=0.7, method="sample")
-    flow = U.port_from(tglow.ListGlow(1, IMG, cfg, COND_CH, BASE_CH), v)
+    flow = U.port_from(tglow.ListGlow(1, IMG, U.to_port(cfg), COND_CH, BASE_CH), v)
     calls = []
     monkeypatch.setattr(tglow, "glowchain",
                         lambda *a: calls.append(a[0].shape) or glowchain(*a))

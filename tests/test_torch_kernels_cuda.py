@@ -5,8 +5,11 @@ where there is none. On the card the same comparisons, at the serving
 path's full shapes, run in ``python3 chip_smoke.py``.
 
 Tolerances as in chip_smoke.py, each element within tol·(1+|ref|): 1e-5 for
-the elementwise kernels, 1e-4 for the chain after K steps of three convs
-each. The plain side runs with TF32 off.
+the elementwise kernels and the folded 1x1, 1e-4 for one GlowStep and for
+the chain after K steps of three convs each. Each autograd Function's
+gradients are held to autograd through the plain version, 1e-4 of
+1+|ref| (the forward values they start from differ by the kernel's
+rounding). The plain side runs with TF32 off.
 """
 
 import pytest
@@ -14,12 +17,16 @@ import torch
 
 from recurrent_flows_tpu_torch.ops import (
     GlowStepParams,
+    actnorm_invconv,
+    actnorm_invconv_ref,
     convlstm_gates,
     convlstm_gates_ref,
     coupling_transform,
     coupling_transform_ref,
     glowchain,
     glowchain_ref,
+    glowstep,
+    glowstep_ref,
 )
 from recurrent_flows_tpu_torch.utils import float32_precision
 
@@ -84,3 +91,98 @@ def test_glowchain_kernel_matches_plain(cuda, clamp, reverse):
     y_ref, ld_ref = glowchain_ref(x, cond, ps, clamp, reverse)
     _close(y, y_ref, 1e-4)
     _close(ld, ld_ref, 1e-4)
+
+
+def _step_inputs(cuda, b=3, h=8, c=8, cc=6, u=32, k=None):
+    lead = () if k is None else (k,)
+
+    def n(*shape, scale=0.1):
+        return scale * torch.randn(lead + shape, generator=cuda, device="cuda")
+
+    ps = GlowStepParams(
+        an_bias=n(c), an_logs=n(c), w1x1=torch.eye(c, device="cuda") + n(c, c),
+        wa=n(9, c // 2 + cc, u), ana_bias=n(u), ana_logs=n(u),
+        wb=n(u, u), anb_bias=n(u), anb_logs=n(u), wc=n(9, u, c), bias_c=n(c),
+        clamp_scale=1 + n(c // 2), clamp_shift=n(c // 2))
+    x = torch.randn(b, h, h, c, generator=cuda, device="cuda")
+    cond = torch.randn(b, h, h, cc, generator=cuda, device="cuda")
+    return x, cond, ps
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("clamp", ["realnvp", "glow", "softclamp", "none"])
+def test_glowstep_kernel_matches_plain(cuda, clamp, reverse):
+    x, cond, ps = _step_inputs(cuda)
+    n = glowstep.launches
+    y, ld = glowstep(x, cond, ps, clamp, reverse)
+    torch.cuda.synchronize()
+    assert glowstep.launches == n + 1
+    y_ref, ld_ref = glowstep_ref(x, cond, ps, clamp, reverse)
+    _close(y, y_ref, 1e-4)
+    _close(ld, ld_ref, 1e-4)
+
+
+@pytest.mark.parametrize("rows,c", [(30 * 32 * 32, 4), (1000, 8), (120, 64), (7, 2)])
+def test_actnorm_invconv_kernel_matches_plain(cuda, rows, c):
+    x = torch.randn(rows, c, generator=cuda, device="cuda")
+    bias, logs = (0.3 * torch.randn(c, generator=cuda, device="cuda") for _ in range(2))
+    w = torch.randn(c, c, generator=cuda, device="cuda")
+    n = actnorm_invconv.launches
+    y = actnorm_invconv(x, bias, logs, w)
+    torch.cuda.synchronize()
+    assert actnorm_invconv.launches == n + 1
+    _close(y, actnorm_invconv_ref(x, bias, logs, w), 1e-5)
+    with pytest.raises(ValueError, match="at most"):
+        actnorm_invconv(torch.zeros(4, 66, device="cuda"), torch.zeros(66, device="cuda"),
+                        torch.zeros(66, device="cuda"), torch.zeros(66, 66, device="cuda"))
+
+
+def _grads_match(fn, ref, inputs, tol=1e-4):
+    """Gradients of a random projection of every output, through the
+    kernel's autograd Function and through autograd of the plain version."""
+    def run(f):
+        ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+        outs = f(ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        loss = sum((o * torch.randn(o.shape, generator=g, device="cuda")).sum()
+                   for o in outs)
+        return torch.autograd.grad(loss, ins)
+
+    for got, want in zip(run(fn), run(ref)):
+        _close(got, want, tol)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_coupling_function_gradients(cuda, reverse):
+    ins = [0.5 * torch.randn(3, 16, 16, 4, generator=cuda, device="cuda") for _ in range(3)]
+    _grads_match(lambda i: coupling_transform(*i, reverse),
+                 lambda i: coupling_transform_ref(*i, reverse), ins)
+
+
+def test_gates_function_gradients(cuda):
+    hc = 24
+    ins = [torch.randn(3, 4, 4, 4 * hc, generator=cuda, device="cuda"),
+           torch.randn(3, 4, 4, hc, generator=cuda, device="cuda")]
+    ins += [0.1 * torch.randn(1, 4, 4, hc, generator=cuda, device="cuda") for _ in range(3)]
+    _grads_match(lambda i: convlstm_gates(*i), lambda i: convlstm_gates_ref(*i), ins)
+
+
+def test_actnorm_invconv_function_gradients(cuda):
+    c = 16
+    ins = [torch.randn(5, 8, 8, c, generator=cuda, device="cuda"),
+           0.3 * torch.randn(c, generator=cuda, device="cuda"),
+           0.3 * torch.randn(c, generator=cuda, device="cuda"),
+           torch.randn(c, c, generator=cuda, device="cuda")]
+    _grads_match(lambda i: actnorm_invconv(*i), lambda i: actnorm_invconv_ref(*i), ins)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("kernel,ref,k", [(glowstep, glowstep_ref, None),
+                                          (glowchain, glowchain_ref, 3)],
+                         ids=["glowstep", "glowchain"])
+def test_glowstep_and_chain_function_gradients(cuda, kernel, ref, k, reverse):
+    x, cond, ps = _step_inputs(cuda, k=k)
+    _grads_match(lambda i: kernel(i[0], i[1], GlowStepParams(*i[2:]), "realnvp", reverse),
+                 lambda i: ref(i[0], i[1], GlowStepParams(*i[2:]), "realnvp", reverse),
+                 [x, cond, *ps])

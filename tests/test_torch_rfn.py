@@ -35,7 +35,7 @@ B, N_COND, N_PRED = 2, 3, 3
 def pair():
     cfg = U.tiny_rfn_config()
     jm, v = U.jax_rfn_variables(cfg)
-    return cfg, jm, v, U.port_from(RFN(cfg), v)
+    return cfg, jm, v, U.port_from(RFN(U.to_port(cfg)), v)
 
 
 def _context(seed=0):
@@ -105,7 +105,7 @@ def test_predictor_matches_jax_predictor(pair):
     ref = JPredictor(jm, v, tcfg, n_conditions=N_COND, n_predictions=N_PRED,
                      seed=0).predict(ctx)
     _, k = jax.random.split(jax.random.key(0))  # the key of its first request
-    pred = Predictor(tm, tcfg, n_conditions=N_COND, n_predictions=N_PRED,
+    pred = Predictor(tm, U.to_port(tcfg), n_conditions=N_COND, n_predictions=N_PRED,
                      seed=0, device="cpu")
     noise = NoiseSource(replay=U.rfn_predict_noise(k, cfg, B, N_COND, N_PRED))
     got = pred.predict(ctx, noise=noise)

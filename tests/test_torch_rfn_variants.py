@@ -33,7 +33,7 @@ VARIANTS = {
 def test_predict_variant_matches_jax(variant):
     cfg = U.tiny_rfn_config(**VARIANTS[variant])
     jm, v = U.jax_rfn_variables(cfg, seed=1)
-    tm = U.port_from(RFN(cfg), v)
+    tm = U.port_from(RFN(U.to_port(cfg)), v)
     x = np.random.default_rng(4).uniform(
         -0.5, 0.5, (B, N_COND, U.IMG, U.IMG, U.CIN)).astype(np.float32)
     key = jax.random.key(6)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from recurrent_flows_tpu.config import GlowConfig, RFNConfig, TrainConfig
+from recurrent_flows_tpu_torch import config as port_config
 from recurrent_flows_tpu_torch.convert import from_flax
 
 # the slice at a small size: image 64 with L=3, so scale 0 (32x32) takes
@@ -46,6 +47,13 @@ def tiny_train_config() -> TrainConfig:
     return TrainConfig(batch_size=2, n_frames=6)
 
 
+def to_port(cfg):
+    """The port's own config dataclass from a JAX-package one (the port
+    imports nothing of the JAX package; the field names are the same)."""
+    cls = getattr(port_config, type(cfg).__name__)
+    return port_config.config_from_dict(cls, dataclasses.asdict(cfg))
+
+
 def perturb(tree, seed: int, scale: float = 0.05):
     """Add scale·N(0,1) to every leaf: moves the zero-initialised leaves
     (Conv2dZeros, realnvp scales, actnorms, peepholes, initial states) off
@@ -56,11 +64,12 @@ def perturb(tree, seed: int, scale: float = 0.05):
         + scale * rng.standard_normal(np.shape(a)).astype(np.float32), tree)
 
 
-def jax_rfn_variables(cfg: RFNConfig, seed: int = 0, batch: int = 2):
+def jax_rfn_variables(cfg: RFNConfig, seed: int = 0, batch: int = 2,
+                      remat: bool = False):
     """JAX RFN and its perturbed variables (init under jit)."""
     from recurrent_flows_tpu.models import RFN
 
-    model = RFN(cfg, remat=False)
+    model = RFN(cfg, remat=remat)
     x0 = jnp.zeros((batch, 2, cfg.image_size, cfg.image_size, cfg.x_channels))
     v = jax.jit(model.init)(jax.random.key(seed), x0, jax.random.key(seed + 1))
     return model, {"params": perturb(v["params"], seed), "consts": v["consts"]}
@@ -123,6 +132,41 @@ def rfn_predict_noise(key, cfg: RFNConfig, batch: int, n_conditions: int,
         eps += flow_sample_noise(k2, cfg.glow, cfg.x_channels, cfg.image_size,
                                  batch)
     return eps
+
+
+def _uniform(key, shape, n_bits: int):
+    return np.asarray(jax.random.uniform(key, shape, jnp.float32, 0.0,
+                                         1.0 / 2 ** n_bits))
+
+
+def rfn_loss_noise(key, cfg: RFNConfig, batch: int, t: int):
+    """The draws ``RFN.loss(x, key)`` makes, in the port's order: per frame
+    the prior eps, the encoder eps and the dequantization uniform
+    (rfn.py:288, :308-310, glow.py:611), then one eps per overshoot depth
+    (rfn.py:424-425)."""
+    hu = cfg.image_size // (2 ** cfg.L)
+    zshape = (batch, hu, hu, cfg.z_dim)
+    xshape = (batch, cfg.image_size, cfg.image_size, cfg.x_channels)
+    draws = []
+    for k in jax.random.split(key, t - 1):
+        k1, k2, k3 = jax.random.split(k, 3)
+        draws += [_normal(k1, zshape), _normal(k2, zshape),
+                  _uniform(k3, xshape, cfg.glow.n_bits)]
+    if cfg.D > 0:
+        for d in range(min(cfg.D + 1, t - 1)):
+            draws.append(_normal(jax.random.fold_in(key, 1000 + d),
+                                 (t - 1 - d,) + zshape))
+    return draws
+
+
+def rfn_ddi_noise(key, cfg: RFNConfig, batch: int):
+    """The draws ``RFN.ddi(x, key)`` makes: the encoder eps, then the
+    dequantization uniform (rfn.py:226-230)."""
+    hu = cfg.image_size // (2 ** cfg.L)
+    rng, k = jax.random.split(key)
+    return [_normal(k, (batch, hu, hu, cfg.z_dim)),
+            _uniform(rng, (batch, cfg.image_size, cfg.image_size,
+                           cfg.x_channels), cfg.glow.n_bits)]
 
 
 def with_glow(cfg: RFNConfig, **glow) -> RFNConfig:
