@@ -17,8 +17,9 @@ C ``chain_impl='all'``. Phase by phase:
    at the shapes the main paths give it (TF32 off), with the device times
    of the kernel, the plain version and, where one PyTorch call computes
    the same function, that call, beside the least time the card could
-   take; then each kernel's autograd Function against autograd through
-   its plain version;
+   take; for the two GlowStep kernels also the launch plan of every shape
+   and a second launch that must repeat the first bit for bit; then each
+   kernel's autograd Function against autograd through its plain version;
 4. serving: warm-up plus 3 requests of 8 sequences through ``Predictor``,
    with the launch count of every kernel per request, then one more
    request under ``torch.profiler`` (device busy time, idle share, device
@@ -252,6 +253,17 @@ def flow_scales(flow):
     return out
 
 
+def check_repeats(name, fn):
+    """Two launches on the same inputs must agree bit for bit (the kernels
+    sum in a fixed order and use no atomics)."""
+    first = fn()
+    torch.cuda.synchronize()
+    second = fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+
+
 def check_elementwise(name, got, ref, tols):
     """Largest |err| over the outputs; raises where an element of output i
     exceeds tols[i]·(1+|ref|)."""
@@ -274,7 +286,7 @@ def check_kernels(model, record):
     from recurrent_flows_tpu_torch.ops import (
         GlowStepParams, actnorm_invconv, actnorm_invconv_ref, convlstm_gates,
         convlstm_gates_ref, coupling_transform, coupling_transform_ref,
-        glowchain, glowchain_ref, glowstep, glowstep_ref)
+        glowchain, glowchain_ref, glowstep, glowstep_ref, launch_plan)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -376,6 +388,14 @@ def check_kernels(model, record):
         for l in range(1, flow.cfg.L):
             hw, c_l, cc = scales[l]
             xs = {b: (rnd(b, hw, hw, c_l), rnd(b, hw, hw, cc)) for b in (BATCH, TRAIN_BATCH)}
+            for b in xs:
+                plan = launch_plan(b, hw, hw, c_l, cc, u)
+                record["launch_plans"].append(dict(scale=l, batch=b, **plan._asdict()))
+                print(f"launch plan scale {l} B={b}: tile of {plan.batch_tile} "
+                      f"samples, {plan.clusters} clusters of {plan.cluster_blocks} "
+                      f"blocks, {plan.stages} stages of {4 * plan.stage_floats} B, "
+                      f"{plan.smem_bytes} B of shared memory, first hidden map "
+                      f"through {'L2' if plan.ha_global else 'shared memory'}")
             for reverse in (False, True):
                 order = reversed(range(flow.cfg.K)) if reverse else range(flow.cfg.K)
                 preps = [prep_glowstep_params(flow.step(l, k), reverse)[0] for k in order]
@@ -414,6 +434,10 @@ def check_kernels(model, record):
                       f"reverse={reverse}: 4 clamps agree")
                 if not reverse:
                     x, cond = xs[TRAIN_BATCH]
+                    check_repeats(f"glowstep scale {l}",
+                                  lambda: glowstep(x, cond, preps[0], "realnvp", False))
+                    check_repeats(f"glowchain scale {l} forward",
+                                  lambda: glowchain(x, cond, ps, "realnvp", False))
                     row = dict(scale=l, shape=list(x.shape),
                                ms=cuda_ms(lambda: glowstep(x, cond, preps[0], "realnvp", False)),
                                plain_ms=cuda_ms(lambda: glowstep_ref(x, cond, preps[0], "realnvp", False)),
@@ -426,12 +450,19 @@ def check_kernels(model, record):
                           f"({row['bound_by']})")
                     for k in step_t:
                         step_t[k] += row[k]
-                    t_k = cuda_ms(lambda: glowchain(x, cond, ps, "realnvp", False), iters=5)
-                    t_p = cuda_ms(lambda: glowchain_ref(x, cond, ps, "realnvp", False), iters=5)
-                    record["glowchain_train_ms"].append(dict(scale=l, ms=t_k, plain_ms=t_p))
-                    print(f"glowchain scale {l} forward B={TRAIN_BATCH}: {t_k:.3f} ms, plain {t_p:.3f} ms")
+                    row = dict(scale=l,
+                               ms=cuda_ms(lambda: glowchain(x, cond, ps, "realnvp", False), iters=5),
+                               plain_ms=cuda_ms(lambda: glowchain_ref(x, cond, ps, "realnvp", False), iters=5),
+                               **bound(nbytes(x, cond, *ps, x) + 4 * TRAIN_BATCH,
+                                       flow.cfg.K * glowstep_flops(x, cond, u)))
+                    record["glowchain_train_ms"].append(row)
+                    print(f"glowchain scale {l} forward B={TRAIN_BATCH}: {row['ms']:.3f} ms, "
+                          f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                          f"({row['bound_by']})")
                 else:
                     x, cond = xs[BATCH]
+                    check_repeats(f"glowchain scale {l} reverse",
+                                  lambda: glowchain(x, cond, ps, "realnvp", True))
                     row = dict(scale=l,
                                ms=cuda_ms(lambda: glowchain(x, cond, ps, "realnvp", True), iters=10),
                                plain_ms=cuda_ms(lambda: glowchain_ref(x, cond, ps, "realnvp", True), iters=10),
@@ -737,7 +768,8 @@ def main() -> None:
     record = dict(card=card, device=torch.cuda.get_device_name(0),
                   torch=torch.__version__, cuda=torch.version.cuda,
                   glowchain_checks=[], glowchain_ms=[], glowchain_train_ms=[],
-                  glowstep_checks=[], glowstep_ms=[], actnorm_invconv=[])
+                  glowstep_checks=[], glowstep_ms=[], actnorm_invconv=[],
+                  launch_plans=[])
 
     # phase 2: build
     t0 = time.perf_counter()

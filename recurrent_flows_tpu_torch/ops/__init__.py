@@ -9,12 +9,14 @@ from .fused import (
     coupling_transform_ref,
 )
 from .glowchain import glowchain, glowchain_ref
-from .glowstep import GlowStepParams, glowstep, glowstep_ref
+from .glowstep import (GlowStepParams, LaunchPlan, glowstep, glowstep_ref,
+                       launch_plan, plan_chunks, plan_samples)
 
-__all__ = ["GlowStepParams", "actnorm_invconv", "actnorm_invconv_ref",
+__all__ = ["GlowStepParams", "LaunchPlan", "actnorm_invconv", "actnorm_invconv_ref",
            "convlstm_gates", "convlstm_gates_ref", "coupling_transform",
            "coupling_transform_ref", "glowchain", "glowchain_ref", "glowstep",
-           "glowstep_ref", "launch_counts", "reset_launch_counts"]
+           "glowstep_ref", "launch_counts", "launch_plan", "plan_chunks", "plan_samples",
+           "reset_launch_counts"]
 
 _WRAPPERS = (actnorm_invconv, convlstm_gates, coupling_transform, glowchain,
              glowstep)

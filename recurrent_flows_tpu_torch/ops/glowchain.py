@@ -2,8 +2,10 @@
 ``csrc/glowchain.cu`` beside its plain PyTorch version.
 
 Replaces ``recurrent_flows_tpu/ops/pallas/glowchain.py::_glowchain_pallas``
-(``glowchain.py:83``). The source note in ``csrc/glowchain.cu`` says what
-bounds it on the H100 and what its design does about that.
+(``glowchain.py:84``). The source notes in ``csrc/glowchain.cu`` and
+``csrc/glowstep_body.cuh`` say what bounds it on the H100 and what its
+design does about that; ``ops.glowstep.launch_plan`` decides its launch
+geometry.
 
 Parameters arrive as a :class:`GlowStepParams` whose every leaf is stacked
 ``[K, ...]`` in execution order (reversed for the inverse), as

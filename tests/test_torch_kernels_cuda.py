@@ -6,7 +6,8 @@ path's full shapes, run in ``python3 chip_smoke.py``.
 
 Tolerances as in chip_smoke.py, each element within tol·(1+|ref|): 1e-5 for
 the elementwise kernels and the folded 1x1, 1e-4 for one GlowStep and for
-the chain after K steps of three convs each. Each autograd Function's
+the chain after K steps of three convs each; two launches of a GlowStep
+kernel on the same inputs must agree bit for bit. Each autograd Function's
 gradients are held to autograd through the plain version, 1e-4 of
 1+|ref| (the forward values they start from differ by the kernel's
 rounding). The plain side runs with TF32 off.
@@ -120,6 +121,73 @@ def test_glowstep_kernel_matches_plain(cuda, clamp, reverse):
     y_ref, ld_ref = glowstep_ref(x, cond, ps, clamp, reverse)
     _close(y, y_ref, 1e-4)
     _close(ld, ld_ref, 1e-4)
+
+
+def _step_and_chain_agree(cuda, b, h, w, c, cc, u, k=2):
+    """Both kernels against their plain versions at one shape, forward and
+    reverse; the second launch must repeat the first bit for bit."""
+    def n(*shape, scale):
+        return scale * torch.randn(shape, generator=cuda, device="cuda")
+
+    fan_a, fan_c = 9 * (c // 2 + cc), 9 * u
+    ps = GlowStepParams(
+        an_bias=n(k, c, scale=0.1), an_logs=n(k, c, scale=0.1),
+        w1x1=torch.eye(c, device="cuda").repeat(k, 1, 1) + n(k, c, c, scale=0.3 / c),
+        wa=n(k, 9, c // 2 + cc, u, scale=fan_a ** -0.5), ana_bias=n(k, u, scale=0.1),
+        ana_logs=n(k, u, scale=0.1), wb=n(k, u, u, scale=u ** -0.5),
+        anb_bias=n(k, u, scale=0.1), anb_logs=n(k, u, scale=0.1),
+        wc=n(k, 9, u, c, scale=0.3 * fan_c ** -0.5), bias_c=n(k, c, scale=0.1),
+        clamp_scale=1 + n(k, c // 2, scale=0.1), clamp_shift=n(k, c // 2, scale=0.1))
+    x = torch.randn(b, h, w, c, generator=cuda, device="cuda")
+    cond = torch.randn(b, h, w, cc, generator=cuda, device="cuda")
+    p0 = GlowStepParams(*(t[0].contiguous() for t in ps))
+    for reverse in (False, True):
+        for kernel, ref, params in ((glowstep, glowstep_ref, p0),
+                                    (glowchain, glowchain_ref, ps)):
+            y, ld = kernel(x, cond, params, "realnvp", reverse)
+            y2, ld2 = kernel(x, cond, params, "realnvp", reverse)
+            torch.cuda.synchronize()
+            y_ref, ld_ref = ref(x, cond, params, "realnvp", reverse)
+            _close(y, y_ref, 1e-4)
+            _close(ld, ld_ref, 1e-4)
+            assert torch.equal(y, y2) and torch.equal(ld, ld2)
+
+
+@pytest.mark.parametrize("b", [1, 7, 30, 33])
+def test_glow_kernels_at_ragged_batches(cuda, b):
+    # 4x4 maps: a cluster takes a tile of several samples, the last one ragged
+    _step_and_chain_agree(cuda, b, 4, 4, 32, 128, 256)
+
+
+@pytest.mark.parametrize("h,w,c,cc,u", [(4, 6, 6, 5, 20), (3, 5, 10, 7, 36),
+                                        (2, 7, 2, 3, 5), (8, 4, 8, 6, 32)])
+def test_glow_kernels_at_odd_shapes(cuda, h, w, c, cc, u):
+    # H != W, and widths that are no multiples of 4: the 4-byte copies
+    _step_and_chain_agree(cuda, 5, h, w, c, cc, u, k=3)
+
+
+@pytest.mark.parametrize("b", [8, 30])
+@pytest.mark.parametrize("hw,c,cc", [(16, 8, 32), (8, 16, 64), (4, 32, 128),
+                                     (2, 64, 256)])
+def test_glow_kernels_at_production_shapes(cuda, hw, c, cc, b):
+    _step_and_chain_agree(cuda, b, hw, hw, c, cc, 256, k=10)
+
+
+@pytest.mark.parametrize("fixed", [dict(cluster_blocks=16), dict(ha_global=False),
+                                   dict(ha_global=True, stages=2), dict(im=2),
+                                   dict(batch_tile=2, cluster_blocks=4)])
+def test_glow_kernels_under_other_launch_plans(cuda, fixed, monkeypatch):
+    import functools
+    import importlib
+
+    module = importlib.import_module("recurrent_flows_tpu_torch.ops.glowstep")
+    monkeypatch.setattr(module, "launch_plan",
+                        functools.partial(module.launch_plan, **fixed))
+    module._plan_ints.cache_clear()
+    try:
+        _step_and_chain_agree(cuda, 9, 8, 8, 16, 64, 256)
+    finally:
+        module._plan_ints.cache_clear()
 
 
 @pytest.mark.parametrize("rows,c", [(30 * 32 * 32, 4), (1000, 8), (120, 64), (7, 2)])
