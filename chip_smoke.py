@@ -13,13 +13,18 @@ C ``chain_impl='all'``. Phase by phase:
 
 1. the card: CUDA must be available (there is no CPU path);
 2. the build of the CUDA libraries (one nvcc per source, started together);
-3. each of the five kernels against its plain PyTorch version on the card,
-   at the shapes the main paths give it (TF32 off), with the device times
-   of the kernel, the plain version and, where one PyTorch call computes
-   the same function, that call, beside the least time the card could
-   take; for the two GlowStep kernels also the launch plan of every shape
-   and a second launch that must repeat the first bit for bit; then each
-   kernel's autograd Function against autograd through its plain version;
+3. the launch floor (the device time of one in-place add on a one-element
+   tensor), then each of the five kernels against its plain PyTorch version
+   on the card, at the shapes the main paths give it (TF32 off), with the
+   device times of the kernel, the plain version and, where one PyTorch
+   call computes the same function, that call, beside the least time the
+   card could take; for the coupling (on the strided 'split'/'cross' views
+   AffineCoupling passes it, which must give what their contiguous copies
+   give) and the folded 1x1 also an in-place add over as much data, for
+   them and the two GlowStep kernels the launch plan
+   of every shape and a second launch that must repeat the first bit for
+   bit; then each kernel's autograd Function against autograd through its
+   plain version;
 4. serving: warm-up plus 3 requests of 8 sequences through ``Predictor``,
    with the launch count of every kernel per request, then one more
    request under ``torch.profiler`` (device busy time, idle share, device
@@ -100,10 +105,11 @@ def card_info() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
+def cuda_ms(fn, iters: int = 20, repeats: int = 1) -> float:
     """Mean device time of one call of ``fn`` in ms: ``iters`` calls are
     captured into a CUDA graph, which is replayed between two CUDA events,
-    so the host's cost of launching from Python is left out."""
+    so the host's cost of launching from Python is left out; with
+    ``repeats`` > 1 the median over that many replays."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capture
@@ -115,12 +121,15 @@ def cuda_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
     graph.replay()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(repeats):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
 
 
 def bound(n_bytes: float, flops: float) -> dict:
@@ -149,12 +158,71 @@ def rel_err(got, ref) -> tuple[float, float]:
     return err.max().item(), (err / (1.0 + ref.abs())).max().item()
 
 
+# (H = W, C) of x at the flow's five scales in rfn_mnist_production
+FLOW_SCALES = [(32 >> l, 4 << l) for l in range(5)]
+
+
+def small_ms(fn) -> float:
+    """``cuda_ms`` for the kernels of a few microseconds (the launch floor,
+    the coupling, the folded 1x1): the median of 5 replays of 100 calls."""
+    return cuda_ms(fn, iters=100, repeats=5)
+
+
+def launch_floor_ms() -> float:
+    """Device time of one in-place add on a one-element tensor: the least a
+    standalone launch costs, the yardstick of the two small flow kernels."""
+    one = torch.zeros(1, device="cuda")
+    return small_ms(lambda: one.add_(1.0))
+
+
+def coupling_cases(rnd):
+    """([B, H, W, C/2], reverse, (z2, shift, s)) of the coupling tail at the
+    serving request (reverse, z2 [8,32,32,2]) and at every scale of the
+    train step (forward, [30,H,W,C/2]): the 'split' half of x and the
+    'cross' halves of the coupling net's output, as AffineCoupling passes
+    them; ``rnd(*shape, scale=)`` draws the data."""
+    shapes = [(BATCH, 32, 2, True)] + [(TRAIN_BATCH, hw, c // 2, False)
+                                       for hw, c in FLOW_SCALES]
+    for b, hw, ch, rev in shapes:
+        x, h = rnd(b, hw, hw, 2 * ch), rnd(b, hw, hw, 2 * ch, scale=0.5)
+        yield [b, hw, hw, ch], rev, (x[..., ch:], h[..., 0::2], torch.tanh(h[..., 1::2]))
+
+
+def coupling_times(fn, z2, shift, s, reverse) -> dict:
+    """Device ms of ``fn(z2, shift, s, reverse)`` on the views and on
+    contiguous copies of z2 and shift, beside an in-place add over a tensor
+    of z2's size (``add_ms``: one elementwise pass over as much data)."""
+    dz2, dshift = z2.contiguous(), shift.contiguous()
+    add = torch.zeros(z2.shape, device=z2.device)
+    return dict(ms=small_ms(lambda: fn(z2, shift, s, reverse)),
+                contiguous_ms=small_ms(lambda: fn(dz2, dshift, s, reverse)),
+                add_ms=small_ms(lambda: add.add_(1.0)))
+
+
+def folded_linear(bias, logs, w):
+    """(weight, bias) of the ``F.linear`` call that computes
+    ``actnorm_invconv(x, bias, logs, w)``: its library yardstick."""
+    return (w * torch.exp(logs)).contiguous(), (bias * torch.exp(logs)) @ w.T
+
+
+def ainv_times(fn, x, bias, logs, w) -> dict:
+    """Device ms of ``fn(x, bias, logs, w)`` beside ``F.linear`` on the
+    folded weights (``library_ms``) and an in-place add over x (``add_ms``)."""
+    import torch.nn.functional as F
+
+    wf, sh = folded_linear(bias, logs, w)
+    add = torch.zeros_like(x)
+    return dict(ms=small_ms(lambda: fn(x, bias, logs, w)),
+                library_ms=small_ms(lambda: F.linear(x, wf, sh)),
+                add_ms=small_ms(lambda: add.add_(1.0)))
+
+
 # device kernels by name: the port's own, then cuDNN convolutions with
 # their layout transposes, then cuBLAS products and triangular solves
 KERNEL_KINDS = (("glowchain", ("glowchain",)),
                 ("glowstep", ("glowstep",)),
-                ("actnorm_invconv", ("actnorm_invconv",)),
-                ("coupling_transform", ("_coupling_kernel",)),
+                ("actnorm_invconv", ("actnorm_invconv", "ainv_kernel")),
+                ("coupling_transform", ("coupling_kernel",)),
                 ("convlstm_gates", ("_gates_kernel",)),
                 ("conv", ("conv", "fprop", "cudnn", "winograd", "nchw", "nhwc")),
                 ("gemm", ("gemm", "gemv", "trsm")))
@@ -284,9 +352,10 @@ def check_kernels(model, record):
 
     from recurrent_flows_tpu_torch.flows.glow import prep_glowstep_params
     from recurrent_flows_tpu_torch.ops import (
-        GlowStepParams, actnorm_invconv, actnorm_invconv_ref, convlstm_gates,
-        convlstm_gates_ref, coupling_transform, coupling_transform_ref,
-        glowchain, glowchain_ref, glowstep, glowstep_ref, launch_plan)
+        GlowStepParams, actnorm_invconv, actnorm_invconv_ref, ainv_plan, convlstm_gates,
+        convlstm_gates_ref, coupling_mode, coupling_plan, coupling_transform,
+        coupling_transform_ref, glowchain, glowchain_ref, glowstep, glowstep_ref,
+        launch_plan, nhwc_view)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -296,32 +365,58 @@ def check_kernels(model, record):
     u = flow.cfg.n_units_affine
     kernels = {}
 
-    # coupling tail: AffineCoupling at scale 0 when serving, z2 [8,32,32,2]
-    # (timed), and forward at every scale of the train step, [30,H,W,C/2]
-    z2, shift, s = rnd(BATCH, 32, 32, 2), rnd(BATCH, 32, 32, 2), rnd(BATCH, 32, 32, 2, scale=0.5)
-    t0 = time.perf_counter()
-    coupling_transform(z2, shift, s, True)
-    torch.cuda.synchronize()
-    print(f"coupling_transform first launch (Triton compile): "
-          f"{time.perf_counter() - t0:.2f} s")
-    worst = 0.0
-    shapes = [(BATCH, 32, 32, 2)] + [(TRAIN_BATCH, hw, hw, c // 2) for hw, c, _ in scales]
-    for shape in shapes:
-        a, b, c_ = rnd(*shape), rnd(*shape), rnd(*shape, scale=0.5)
+    record["launch_floor_ms"] = floor = launch_floor_ms()
+    print(f"launch floor (in-place add on one element): {floor:.5f} ms")
+
+    # coupling tail at the request's shape and every train-step scale, on
+    # the views AffineCoupling passes; times summed over the six shapes
+    if [(hw, c) for hw, c, _ in scales] != FLOW_SCALES:
+        raise AssertionError(f"the flow's scales {scales} are not {FLOW_SCALES}")
+    worst, t = 0.0, dict(ms=0.0, plain_ms=0.0, n_bytes=0, flops=0)
+    for shape, rev, (z2, shift, s) in coupling_cases(rnd):
+        b, hh, ww, ch = shape
+        plan = coupling_plan(b, hh * ww * ch)
+        mode = coupling_mode(ch, hh * ww * ch, [(v.data_ptr(), *nhwc_view("v", v))
+                                               for v in (z2, shift, s)])
+        dz2, dshift = z2.contiguous(), shift.contiguous()
+        e = 0.0
         for reverse in (False, True):
-            worst = max(worst, check_elementwise(
-                f"coupling_transform {shape} reverse={reverse}",
-                coupling_transform(a, b, c_, reverse),
-                coupling_transform_ref(a, b, c_, reverse),
+            got = coupling_transform(z2, shift, s, reverse)
+            e = max(e, check_elementwise(
+                f"coupling_transform {shape} reverse={reverse}", got,
+                coupling_transform_ref(z2, shift, s, reverse),
                 (TOL_ELEMENTWISE, TOL_COUPLING_LD)))
-    print(f"coupling_transform: {len(shapes)} shapes, both directions, err {worst:.3e}")
+            dense = coupling_transform(dz2, dshift, s, reverse)
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, dense)):
+                raise AssertionError(f"coupling_transform {shape}: the strided "
+                                     "views and their contiguous copies give other results")
+        check_repeats(f"coupling_transform {shape}",
+                      lambda: coupling_transform(z2, shift, s, rev))
+        worst = max(worst, e)
+        row = dict(shape=shape, reverse=rev, plan=plan._asdict(), mode=mode, err=e,
+                   **coupling_times(coupling_transform, z2, shift, s, rev),
+                   plain_ms=cuda_ms(lambda: coupling_transform_ref(z2, shift, s, rev)),
+                   # 3 reads, 1 write, the logdet; ~4 operations per element
+                   n_bytes=nbytes(z2, shift, s, z2) + 4 * b, flops=4 * z2.numel())
+        row.update(bound(row["n_bytes"], row["flops"]))
+        record["coupling_transform"].append(row)
+        print(f"coupling_transform z2 {shape} {'reverse' if rev else 'forward'}: "
+              f"plan {plan.blocks} blocks of {plan.threads} threads, mode {mode}; "
+              f"{row['ms']:.5f} ms on the views ({row['ms'] / floor:.2f} floors), "
+              f"{row['contiguous_ms']:.5f} on contiguous copies, in-place add "
+              f"{row['add_ms']:.5f}, plain {row['plain_ms']:.5f}, "
+              f"bound {row['bound_ms']:.6f} ({row['bound_by']})")
+        for k in t:
+            t[k] += row[k]
+    rows = record["coupling_transform"]
+    print(f"coupling_transform: {len(rows)} shapes, both directions, err {worst:.3e}")
+    # ms, plain_ms and bound_ms are sums over `shapes`; request_ms is the
+    # serving request's shape alone, the one shape timed before the train
+    # shapes were
     kernels["coupling_transform"] = dict(
-        max_abs_err=worst,
-        ms=cuda_ms(lambda: coupling_transform(z2, shift, s, True)),
-        plain_ms=cuda_ms(lambda: coupling_transform_ref(z2, shift, s, True)),
-        library_ms=None,
-        # 3 reads, 1 write, the logdet; ~4 operations per element
-        **bound(nbytes(z2, shift, s, z2) + 4 * BATCH, 4 * z2.numel()))
+        max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"], library_ms=None,
+        **bound(t["n_bytes"], t["flops"]), request_ms=rows[0]["ms"],
+        shapes=[r["shape"] for r in rows])
 
     # ConvLSTM gates: gates [B,2,2,800], c [B,2,2,200], B=8 (timed) and 30
     hc = model.cfg.h_dim
@@ -357,26 +452,32 @@ def check_kernels(model, record):
                                   (actnorm_invconv_ref(x, bias, logs, w),),
                                   (TOL_INVCONV,))
             worst = max(worst, e)
-            wf = (w * torch.exp(logs)).contiguous()
-            sh = (bias * torch.exp(logs)) @ w.T
-            check_elementwise(f"F.linear scale {l}", (F.linear(x, wf, sh),), (y,),
-                              (1e-4,))
-            row = dict(scale=l, shape=[TRAIN_BATCH * hw * hw, c], err=e,
-                       ms=cuda_ms(lambda: actnorm_invconv(x, bias, logs, w)),
+            check_repeats(f"actnorm_invconv scale {l}",
+                          lambda: (actnorm_invconv(x, bias, logs, w),))
+            plan = ainv_plan(TRAIN_BATCH * hw * hw, c)
+            check_elementwise(f"F.linear scale {l}",
+                              (F.linear(x, *folded_linear(bias, logs, w)),), (y,), (1e-4,))
+            row = dict(scale=l, shape=[TRAIN_BATCH * hw * hw, c], err=e, plan=plan._asdict(),
+                       **ainv_times(actnorm_invconv, x, bias, logs, w),
                        plain_ms=cuda_ms(lambda: actnorm_invconv_ref(x, bias, logs, w)),
-                       library_ms=cuda_ms(lambda: F.linear(x, wf, sh)),
                        n_bytes=nbytes(x, bias, logs, w, x),
                        flops=2 * x.numel() * c + 2 * x.numel())
             row.update(bound(row["n_bytes"], row["flops"]))
             record["actnorm_invconv"].append(row)
-            print(f"actnorm_invconv scale {l} x{row['shape']}: err {e:.3e}, "
-                  f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f}, F.linear "
-                  f"{row['library_ms']:.5f}, bound {row['bound_ms']:.6f} ({row['bound_by']})")
+            print(f"actnorm_invconv scale {l} x{row['shape']}: plan {plan.blocks} blocks "
+                  f"of {plan.threads} threads ({plan.rows_per_block} rows x {plan.groups} "
+                  f"output vectors, {plan.lanes} lanes each), err {e:.3e}, "
+                  f"{row['ms']:.5f} ms ({row['ms'] / floor:.2f} floors), in-place add "
+                  f"{row['add_ms']:.5f}, plain {row['plain_ms']:.5f}, F.linear "
+                  f"{row['library_ms']:.5f}, "
+                  f"bound {row['bound_ms']:.6f} ({row['bound_by']})")
             for k in t:
                 t[k] += row[k]
+    # every time a sum over `shapes`, the five scales of the train step
     kernels["actnorm_invconv"] = dict(
         max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
-        library_ms=t["library_ms"], **bound(t["n_bytes"], t["flops"]))
+        library_ms=t["library_ms"], **bound(t["n_bytes"], t["flops"]),
+        shapes=[r["shape"] for r in record["actnorm_invconv"]])
 
     # glowstep (train step, B=30, forward timed) and glowchain (serving, B=8,
     # reverse timed; train step, B=30, forward timed too): scales 1-4, both
@@ -740,7 +841,7 @@ def train_card_vs_cpu(mcfg, tcfg, rng, record):
 
 
 SOURCES = {
-    "coupling_transform": ("triton", "recurrent_flows_tpu_torch/ops/fused.py",
+    "coupling_transform": ("cuda", "recurrent_flows_tpu_torch/csrc/coupling.cu",
                            "recurrent_flows_tpu/ops/pallas/fused.py:75"),
     "actnorm_invconv": ("cuda", "recurrent_flows_tpu_torch/csrc/actnorm_invconv.cu",
                         "recurrent_flows_tpu/ops/pallas/fused.py:166"),
@@ -769,7 +870,7 @@ def main() -> None:
                   torch=torch.__version__, cuda=torch.version.cuda,
                   glowchain_checks=[], glowchain_ms=[], glowchain_train_ms=[],
                   glowstep_checks=[], glowstep_ms=[], actnorm_invconv=[],
-                  launch_plans=[])
+                  coupling_transform=[], launch_plans=[])
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -808,7 +909,8 @@ def main() -> None:
     line = {"kernels": [
         dict(name=name, route=route, source=source, replaces=replaces,
              launches=launches[name], **kernels[name])
-        for name, (route, source, replaces) in SOURCES.items()]}
+        for name, (route, source, replaces) in SOURCES.items()],
+        "launch_floor_ms": record["launch_floor_ms"]}
     record.update(line, total_s=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -5,65 +5,161 @@
 // the rows of x [rows, C], no logdet. Computes what actnorm_invconv_ref
 // (recurrent_flows_tpu_torch/ops/fused.py) computes.
 //
-// What bounds it on the H100: bytes. Each row is read once and written once
-// (2 * rows * C * 4 bytes) for 2*C FLOPs per element, C <= 64: 0.98 MB at the
-// widest map of rfn_mnist_production ([30*32*32, 4]), a fraction of a
-// microsecond at the card's memory rate, so a launch is mostly latency.
+// What bounds it on the H100: the launch. Each row is read once and written
+// once (2 * rows * C * 4 bytes) for 2*C FLOPs per element, C <= 64: at the
+// five scales of rfn_mnist_production ([30720, 4] .. [120, 64]) 0.06-0.98 MB,
+// under 0.3 microseconds at the card's memory rate, and at most ~1 MFLOP. So
+// a launch costs its fixed latency (the launch itself, one trip to memory
+// and back) plus whatever serial work the design puts on top of it; the
+// design keeps that serial work short:
 //
-// Design: one pass over the rows. A block takes a tile of consecutive rows,
-// which are one contiguous span of memory (kTileElems values, so that wide
-// and narrow maps alike spread over many blocks): its threads load the span
-// with neighbouring threads on neighbouring addresses, apply x * scale +
-// sbias (scale = e^logs, sbias = b * scale) on the way into shared memory,
-// and keep W [C, C] (at most 16 KB, rows padded by one float) in shared
-// memory beside it. Each thread then computes output elements i = r * C + d
-// for consecutive i: the row's inputs are a shared-memory broadcast within
-// the threads of a row, the weights W[d, c] are read at a stride of C + 1
-// floats (no bank conflict), and the stores are coalesced. The sum over c
-// runs in a fixed order.
+//  * Compile-time width. The kernel is a template on C in {4, 8, 16, 32, 64}:
+//    index math is shifts and every loop unrolls. Other widths <= 64 (and
+//    pointers that are not 16-byte aligned) take a run-time-C instance, one
+//    thread per output element.
+//  * Every thread a 4-wide output vector of one row. It reads its part of
+//    the row as 16-byte loads and writes the vector as one 16-byte store.
+//    From C = 32 the C-term sum of each output is split over `lanes` = 4
+//    neighbouring threads (each takes every lanes-th 16-byte piece of the
+//    row) and their partial sums are added by a fixed __shfl_xor_sync
+//    butterfly: the dependent chain is C/lanes FMAs, not C.
+//  * The grid fills the card. ops/fused.py::ainv_plan gives each block a few
+//    rows and a slice of their output vectors (2, or the 1 of C = 4), so that
+//    every scale spreads over most of the 132 SMs in one wave.
+//  * No per-element fixed work. e^logs and b*e^logs are computed once per
+//    channel and block, into shared memory, while the row and W loads are
+//    in flight; then every element is one FMA into the folded actnorm and
+//    4 FMAs into the outputs.
+//  * W through the read-only path: each thread reads the pieces of the 4
+//    rows of W it needs as 16-byte loads, all of them issued before the
+//    barrier; a block computes `groups` output vectors of its rows, so it
+//    reads 4*groups rows of W (at most 16 KB in all, L1/L2-resident after
+//    the first block). Staging those rows in shared memory by cp.async,
+//    overlapped with the row loads, measured slower at 4 of the 5 scales
+//    (PERF.md).
+//  * Sums in a fixed order (c ascending within a lane, then the butterfly),
+//    so two launches agree bit for bit.
+//  * No tensor cores: at 2*C FLOPs per element a launch is at most ~1 MFLOP,
+//    and TF32 would break the 1e-5 tolerance against float32.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileElems = 1024;  // values of x per block
+constexpr int kMaxC = 64;
 
-inline int tile_rows(int C) { return kTileElems / C > 1 ? kTileElems / C : 1; }
+// The folded actnorm of channel c, once per block: scale = e^logs,
+// shift = b * e^logs (the reference's (x + b) * e^logs, as x*scale + shift).
+__device__ __forceinline__ void fold_actnorm(const float* __restrict__ bias,
+                                             const float* __restrict__ logs,
+                                             float* scale, float* shift, int C) {
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const float e = expf(logs[c]);
+    scale[c] = e;
+    shift[c] = bias[c] * e;
+  }
+}
 
-__global__ void __launch_bounds__(kThreads)
-actnorm_invconv_kernel(const float* __restrict__ x,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ logs,
-                       const float* __restrict__ w,  // [C, C], y_d = sum_c w[d, c]
-                       float* __restrict__ y, int rows, int C, int tile) {
-  extern __shared__ float smem[];
-  const int ldw = C + 1;
-  float* ws = smem;             // [C, C + 1]: ws[d * ldw + c] = w[d * C + c]
-  float* xs = ws + C * ldw;     // [tile, C], the folded actnorm applied
-  const int row0 = blockIdx.x * tile;
-  const int n = min(tile, rows - row0) * C;
-  for (int i = threadIdx.x; i < C * C; i += blockDim.x) {
-    const int d = i / C, c = i - d * C;
-    ws[d * ldw + c] = w[i];
+// C in {4, 8, 16, 32, 64}; LANES threads share one 4-wide output vector.
+// Block (bx, by) takes rows [bx*rows_per_block, ...) and the output vectors
+// [by*groups, (by+1)*groups) of each, so it reads 4*groups rows of W.
+template <int C, int LANES>
+__global__ void __launch_bounds__(256)
+ainv_kernel(const float4* __restrict__ x, const float* __restrict__ bias,
+            const float* __restrict__ logs,
+            const float4* __restrict__ w,  // [C, C/4]: y_d = sum_c w[d, c] x_c
+            float4* __restrict__ y, int rows, int rows_per_block, int groups) {
+  constexpr int G = C / 4;      // output vectors (and 16-byte pieces) per row
+  constexpr int Q = G / LANES;  // pieces of the row per lane
+  static_assert(Q * LANES == G, "lanes must divide C/4");
+  __shared__ __align__(16) float scale[C], shift[C];
+
+  const int t = threadIdx.x;
+  // groups and LANES are powers of 2: so are the threads of a row
+  const int row_shift = __ffs(groups * LANES) - 1;
+  const int row = blockIdx.x * rows_per_block + (t >> row_shift);
+  const int j = t & ((1 << row_shift) - 1);
+  const int g = blockIdx.y * groups + j / LANES, lane = j % LANES;
+  const bool live = row < rows;
+
+  // every load first: the row's pieces lane, lane + LANES, ... and the
+  // matching pieces of W's rows 4g .. 4g+3
+  float4 xv[Q], wv[4][Q];
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    xv[k] = live ? __ldg(x + (size_t)row * G + k * LANES + lane)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) wv[d][k] = __ldg(w + (4 * g + d) * G + k * LANES + lane);
   }
-  const float* xb = x + (size_t)row0 * C;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int c = i % C;
-    const float scale = expf(logs[c]);
-    xs[i] = xb[i] * scale + bias[c] * scale;
-  }
+  fold_actnorm(bias, logs, scale, shift, C);
   __syncthreads();
-  float* yb = y + (size_t)row0 * C;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = i / C, d = i - r * C;
-    const float* row = xs + r * C;
-    const float* wd = ws + d * ldw;
-    float acc = 0.0f;
-    for (int c = 0; c < C; ++c) acc = fmaf(row[c], wd[c], acc);
-    yb[i] = acc;
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const float4 sc = reinterpret_cast<const float4*>(scale)[k * LANES + lane];
+    const float4 sh = reinterpret_cast<const float4*>(shift)[k * LANES + lane];
+    const float v0 = fmaf(xv[k].x, sc.x, sh.x), v1 = fmaf(xv[k].y, sc.y, sh.y);
+    const float v2 = fmaf(xv[k].z, sc.z, sh.z), v3 = fmaf(xv[k].w, sc.w, sh.w);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      acc[d] = fmaf(v0, wv[d][k].x, acc[d]);
+      acc[d] = fmaf(v1, wv[d][k].y, acc[d]);
+      acc[d] = fmaf(v2, wv[d][k].z, acc[d]);
+      acc[d] = fmaf(v3, wv[d][k].w, acc[d]);
+    }
   }
+  // the lanes of one vector are neighbours in one warp, all live or all not
+  if constexpr (LANES > 1) {
+    const unsigned group = ((1u << LANES) - 1) << ((t & 31) & ~(LANES - 1));
+#pragma unroll
+    for (int o = 1; o < LANES; o <<= 1) {
+#pragma unroll
+      for (int d = 0; d < 4; ++d) acc[d] += __shfl_xor_sync(group, acc[d], o);
+    }
+  }
+  if (live && lane == 0) y[(size_t)row * G + g] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+
+// Any C <= 64, any alignment: one thread per output element (row, d).
+__global__ void __launch_bounds__(256)
+ainv_kernel_any(const float* __restrict__ x, const float* __restrict__ bias,
+                const float* __restrict__ logs, const float* __restrict__ w,
+                float* __restrict__ y, int rows, int C, int rows_per_block) {
+  __shared__ float scale[kMaxC], shift[kMaxC];
+  const int row = blockIdx.x * rows_per_block + threadIdx.x / C;
+  const int d = threadIdx.x % C;
+  fold_actnorm(bias, logs, scale, shift, C);
+  __syncthreads();
+  if (row >= rows) return;
+  const float* xr = x + (size_t)row * C;
+  const float* wd = w + d * C;
+  float acc = 0.f;
+  for (int c = 0; c < C; ++c) acc = fmaf(fmaf(__ldg(xr + c), scale[c], shift[c]), __ldg(wd + c), acc);
+  y[(size_t)row * C + d] = acc;
+}
+
+// The lanes of each output vector at width C: 4 from C = 32, else 1 (one
+// instance per width; ops/fused.py::ainv_plan gives the same).
+template <int C>
+constexpr int kLanes = C >= 32 ? 4 : 1;
+
+template <int C>
+cudaError_t launch(int lanes, const float* x, const float* bias, const float* logs,
+                   const float* w, float* y, int rows, int rows_per_block,
+                   int groups, cudaStream_t stream) {
+  constexpr int LANES = kLanes<C>;
+  if (lanes != LANES || groups < 1 || (C / 4) % groups || (groups & (groups - 1)))
+    return cudaErrorInvalidValue;
+  const int threads = rows_per_block * groups * LANES;
+  const dim3 blocks((rows + rows_per_block - 1) / rows_per_block, C / 4 / groups);
+  ainv_kernel<C, LANES><<<blocks, threads, 0, stream>>>(
+      reinterpret_cast<const float4*>(x), bias, logs,
+      reinterpret_cast<const float4*>(w), reinterpret_cast<float4*>(y), rows,
+      rows_per_block, groups);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -74,18 +170,34 @@ const char* actnorm_invconv_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// y[rows, C] = ((x + bias) * exp(logs)) @ w^T on `stream`, C <= 64.
+// y[rows, C] = ((x + bias) * exp(logs)) @ w^T on `stream`, C <= 64, with the
+// geometry of ops/fused.py::ainv_plan: `vec` 1 takes the compile-time-width
+// instance (C in {4, 8, 16, 32, 64}, 16-byte aligned pointers) with `lanes`
+// threads per output vector (kLanes<C>, checked), 0 the run-time-C one; a block takes
+// `rows_per_block` rows, and `groups` 4-wide output vectors of each (a
+// power-of-2 divisor of C/4; the run-time-C instance takes whole rows).
 // Returns the cudaError_t of the launch (0 on success).
 int actnorm_invconv_launch(const float* x, const float* bias,
                            const float* logs, const float* w, float* y,
-                           int rows, int C, void* stream) {
-  const int tile = tile_rows(C);
-  const size_t smem = sizeof(float) * ((size_t)C * (C + 1) + (size_t)tile * C);
-  const int grid = (rows + tile - 1) / tile;
-  actnorm_invconv_kernel<<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      x, bias, logs, w, y, rows, C, tile);
-  return static_cast<int>(cudaGetLastError());
+                           int rows, int C, int vec, int lanes,
+                           int rows_per_block, int groups, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (rows < 1 || C < 1 || C > kMaxC || rows_per_block < 1) return err;
+  if (!vec) {
+    const int blocks = (rows + rows_per_block - 1) / rows_per_block;
+    ainv_kernel_any<<<blocks, rows_per_block * C, 0, s>>>(x, bias, logs, w, y,
+                                                          rows, C, rows_per_block);
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch (C) {
+    case 4: err = launch<4>(lanes, x, bias, logs, w, y, rows, rows_per_block, groups, s); break;
+    case 8: err = launch<8>(lanes, x, bias, logs, w, y, rows, rows_per_block, groups, s); break;
+    case 16: err = launch<16>(lanes, x, bias, logs, w, y, rows, rows_per_block, groups, s); break;
+    case 32: err = launch<32>(lanes, x, bias, logs, w, y, rows, rows_per_block, groups, s); break;
+    case 64: err = launch<64>(lanes, x, bias, logs, w, y, rows, rows_per_block, groups, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

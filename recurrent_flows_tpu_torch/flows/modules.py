@@ -170,8 +170,9 @@ class AffineCoupling(nn.Module):
         h = act(self.net1(h, ddi), self.non_lin)
         shift, log_scale = split_feature(self.net2(h), "cross")
         s = clamp(log_scale, self.clamp_type, self.scale, self.scale_shift)
-        z2, ld = coupling_transform(z2.contiguous(), shift.contiguous(),
-                                    s.contiguous(), reverse=reverse)
+        # z2 and shift are strided views ('split' and 'cross' halves); the
+        # kernel reads them where they lie
+        z2, ld = coupling_transform(z2, shift, s, reverse=reverse)
         return torch.cat([z1, z2], -1), ld
 
     def forward(self, x, condition, logdet=None, ddi: bool = False):

@@ -1,22 +1,28 @@
 """Hand-written Hopper kernels with their plain PyTorch versions."""
 
 from .fused import (
+    AinvPlan,
+    CouplingPlan,
     actnorm_invconv,
     actnorm_invconv_ref,
+    ainv_plan,
     convlstm_gates,
     convlstm_gates_ref,
+    coupling_mode,
+    coupling_plan,
     coupling_transform,
     coupling_transform_ref,
+    nhwc_view,
 )
 from .glowchain import glowchain, glowchain_ref
 from .glowstep import (GlowStepParams, LaunchPlan, glowstep, glowstep_ref,
                        launch_plan, plan_chunks, plan_samples)
 
-__all__ = ["GlowStepParams", "LaunchPlan", "actnorm_invconv", "actnorm_invconv_ref",
-           "convlstm_gates", "convlstm_gates_ref", "coupling_transform",
-           "coupling_transform_ref", "glowchain", "glowchain_ref", "glowstep",
-           "glowstep_ref", "launch_counts", "launch_plan", "plan_chunks", "plan_samples",
-           "reset_launch_counts"]
+__all__ = ["AinvPlan", "CouplingPlan", "GlowStepParams", "LaunchPlan", "actnorm_invconv",
+           "actnorm_invconv_ref", "ainv_plan", "convlstm_gates", "convlstm_gates_ref",
+           "coupling_mode", "coupling_plan", "coupling_transform", "coupling_transform_ref",
+           "glowchain", "glowchain_ref", "glowstep", "glowstep_ref", "launch_counts",
+           "launch_plan", "nhwc_view", "plan_chunks", "plan_samples", "reset_launch_counts"]
 
 _WRAPPERS = (actnorm_invconv, convlstm_gates, coupling_transform, glowchain,
              glowstep)

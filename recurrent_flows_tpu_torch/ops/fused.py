@@ -1,31 +1,30 @@
-"""The coupling tail and the ConvLSTM gates (Triton) and the folded
-actnorm + 1x1 (CUDA C++), each beside its plain PyTorch version.
+"""The coupling tail and the folded actnorm + 1x1 (CUDA C++) and the
+ConvLSTM gates (Triton), each beside its plain PyTorch version.
 
 Replaces ``recurrent_flows_tpu/ops/pallas/fused.py``:
 
 * ``coupling_transform`` replaces ``_coupling_pallas`` (``fused.py:75``):
   forward ``(z2 + shift)·e^s``, reverse ``z2·e^{-s} - shift``, plus the
-  per-sample logdet ``Σ s``. On the H100 it is bound by bytes (three
-  reads, one write, a handful of flops per element) and, at the slice's
-  shapes ([B,32,32,2]), by launch latency. The kernel reads each element
-  once and reduces the logdet in the same pass: one program per sample
-  loops over its elements and sums in a fixed order, so the logdet is
-  the same bit for bit from run to run (no float atomics).
+  per-sample logdet ``Σ s``, in CUDA C++ (``csrc/coupling.cu``), one block
+  per sample. It reads z2, shift and s where they lie: NHWC views with
+  channel stride 1 or 2 (:func:`nhwc_view`), so the coupling's 'split' and
+  'cross' halves need no copy. :func:`coupling_plan` decides its geometry
+  and :func:`coupling_mode` its loads.
+* ``actnorm_invconv`` replaces ``_actnorm_invconv_pallas``
+  (``fused.py:166``): ``((x + b)·e^logs)·Wᵀ`` over rows, the step actnorm
+  folded into the invertible 1x1, in CUDA C++ (``csrc/actnorm_invconv.cu``);
+  :func:`ainv_plan` decides its geometry.
 * ``convlstm_gates`` replaces ``_gates_pallas`` (``fused.py:257``): the
   peephole ConvLSTM update from the fused gate-conv output. One
   elementwise pass with no reduction and no reuse, bound by bytes
   (5·hc in, 2·hc out per position, peepholes broadcast over B); Triton's
   masked block loads read each input once and write each output once.
 
-* ``actnorm_invconv`` replaces ``_actnorm_invconv_pallas``
-  (``fused.py:166``): ``((x + b)·e^logs)·Wᵀ`` over rows, the step actnorm
-  folded into the invertible 1x1. Its kernel is CUDA C++ because it
-  computes a matrix product in its own body; the source note in
-  ``csrc/actnorm_invconv.cu`` says what bounds it and what its design does.
-
-Dispatch is by device: a CPU tensor takes the plain version (autograd
-differentiates it directly), a CUDA tensor launches the kernel or raises;
-nothing falls back. Each wrapper counts its launches in
+The source notes in ``csrc/`` say what bounds each CUDA kernel on the H100
+and what its design does about it. Dispatch is by device: a CPU tensor
+takes the plain version (autograd differentiates it directly), a CUDA
+tensor launches the kernel or raises; nothing falls back and nothing is
+copied behind the caller's back. Each wrapper counts its launches in
 ``<wrapper>.launches``. Triton is imported, and every kernel is compiled,
 on the first launch only. On the card each kernel is the forward of a
 ``torch.autograd.Function`` whose backward is plain PyTorch, as the TPU
@@ -37,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -71,29 +71,9 @@ def actnorm_invconv_ref(x, bias, logs, w):
 
 
 # ---------------------------------------------------------------------------
-# Triton kernels (plain functions here; jitted on first launch, when
-# ``triton``/``tl`` become module globals — see _kernels())
+# Triton kernel (a plain function here; jitted on first launch, when
+# ``triton``/``tl`` become module globals — see _gates_jit())
 # ---------------------------------------------------------------------------
-
-
-def _coupling_kernel(z2_ptr, shift_ptr, s_ptr, out_ptr, ld_ptr, n,
-                     REVERSE: tl.constexpr, BLOCK: tl.constexpr):
-    b = tl.program_id(0)
-    base = b.to(tl.int64) * n
-    acc = tl.zeros([BLOCK], dtype=tl.float32)
-    for start in range(0, n, BLOCK):
-        offs = start + tl.arange(0, BLOCK)
-        m = offs < n
-        z2 = tl.load(z2_ptr + base + offs, mask=m, other=0.0)
-        sh = tl.load(shift_ptr + base + offs, mask=m, other=0.0)
-        s = tl.load(s_ptr + base + offs, mask=m, other=0.0)
-        if REVERSE:
-            out = z2 * tl.exp(-s) - sh
-        else:
-            out = (z2 + sh) * tl.exp(s)
-        tl.store(out_ptr + base + offs, out, mask=m)
-        acc += s
-    tl.store(ld_ptr + b, tl.sum(acc, axis=0))
 
 
 def _gates_kernel(g_ptr, c_ptr, wci_ptr, wcf_ptr, wco_ptr, h_ptr, cn_ptr,
@@ -127,13 +107,13 @@ def _gates_kernel(g_ptr, c_ptr, wci_ptr, wcf_ptr, wco_ptr, h_ptr, cn_ptr,
 
 
 @functools.cache
-def _kernels():
-    """Import Triton and jit the kernels (first launch only)."""
+def _gates_jit():
+    """Import Triton and jit the gates kernel (first launch only)."""
     global triton, tl
     import triton
     import triton.language as tl
 
-    return triton.jit(_coupling_kernel), triton.jit(_gates_kernel)
+    return triton.jit(_gates_kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +121,7 @@ def _kernels():
 # ---------------------------------------------------------------------------
 
 
-def _check(name, tensors, shapes):
+def _check(name, tensors, shapes, contiguous=True):
     dev = tensors[0].device
     for t, shape in zip(tensors, shapes):
         if t.dtype != torch.float32:
@@ -151,22 +131,127 @@ def _check(name, tensors, shapes):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                              f"{tuple(shape)}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev.type == "cuda"
 
 
-def _coupling_launch(z2, shift, s, reverse):
-    kern, _ = _kernels()
-    b = z2.shape[0]
-    n = z2.numel() // b
-    out = torch.empty_like(z2)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _load(name: str, launch_args: list):
+    """The built ``csrc/<name>.cu`` with its C functions typed."""
+    from ._build import load
+
+    lib = load(name)
+    if not getattr(lib, "_typed", False):
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes, launch.restype = launch_args, ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _raise_on(lib, name: str, err: int):
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           + getattr(lib, f"{name}_error_string")(err).decode())
+
+
+COUPLING_MAX_THREADS = 1024
+
+
+class CouplingPlan(NamedTuple):
+    """The launch geometry of ``csrc/coupling.cu`` for a batch of samples of
+    n values each, cut into ceil(n/4) groups of 4."""
+
+    threads: int  # per block, a multiple of 32; thread t takes groups t, t + threads, ...
+    blocks: int  # b: one per sample
+
+
+def coupling_plan(b: int, n: int) -> CouplingPlan:
+    """The launch geometry of the coupling kernel for b samples of n values.
+    A pure function of the shapes.
+
+    One block takes a whole sample, one group of 4 values per thread while
+    the sample fits 1,024 threads (a thread loops over several beyond
+    that). On the H100 a thread-block cluster of 2 to 8 blocks per sample
+    was slower at every shape of ``rfn_mnist_production`` (``PERF.md``)."""
+    if b < 1 or n < 1:
+        raise ValueError(f"coupling_plan: bad shape (b={b}, n={n})")
+    return CouplingPlan(min(COUPLING_MAX_THREADS, _cdiv(_cdiv(n, 4), 32) * 32), b)
+
+
+def nhwc_view(name: str, t) -> tuple[int, int]:
+    """(row stride R, channel stride cs) of an NHWC tensor whose element
+    (b, h, w, c) lies at ((b·H + h)·W + w)·R + c·cs with cs 1 or 2: a
+    contiguous tensor, or the 'split' (x[..., C/2:]) or 'cross'
+    (x[..., 0::2], x[..., 1::2]) half of one. Raises ValueError on any other
+    layout; the strides of axes of length 1 are never used."""
+    if t.dim() != 4:
+        raise ValueError(f"{name}: expected NHWC, got shape {tuple(t.shape)}")
+    b, h, w, c = t.shape
+    sb, sh, sw, sc = t.stride()
+    cs = sc if c > 1 else 1
+    r = next((st for size, st in ((w, sw), (h, sh), (b, sb)) if size > 1), c * cs)
+    ok = (cs in (1, 2) and r >= (c - 1) * cs + 1
+          and (w == 1 or sw == r) and (h == 1 or sh == w * r)
+          and (b == 1 or sb == h * w * r))
+    if not ok:
+        raise ValueError(
+            f"{name}: strides {t.stride()} of shape {tuple(t.shape)}; the kernel "
+            "takes NHWC views whose positions lie one row stride apart, with "
+            "channel stride 1 or 2 (a contiguous tensor, or a 'split' or "
+            "'cross' half of one)")
+    return r, cs
+
+
+def coupling_mode(ch: int, n: int, views) -> int:
+    """How ``csrc/coupling.cu`` loads a group of 4 values, given the
+    (data_ptr, row stride, channel stride) of each input: 4 where C/2 = ch
+    is a multiple of 4 (16-byte loads in one position), 2 where ch = 2 (16
+    bytes of a contiguous view or of each of two positions of a 'cross'
+    view, 8 bytes of each of two positions of a 'split' view), 1 (4-byte
+    loads) where a pointer or a row stride breaks the alignment that needs,
+    or n is no multiple of 4."""
+    def aligned(floats, ptr, r):
+        return ptr % (4 * floats) == 0 and r % floats == 0
+
+    if ch % 4 == 0 and all(aligned(4, p, r) for p, r, _ in views):
+        return 4
+    # at ch = 2 a group starts at an even position: a contiguous view (r = 2)
+    # needs only a 16-byte aligned pointer
+    if ch == 2 and n % 4 == 0 and all(p % 16 == 0 if r == 2 else aligned(2 * cs, p, r)
+                                      for p, r, cs in views):
+        return 2
+    return 1
+
+
+_COUPLING_ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int] * 3
+                  + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def _coupling_launch(z2, shift, s, reverse, strides):
+    lib = _load("coupling", _COUPLING_ARGS)
+    b, h, w, ch = z2.shape
+    n = h * w * ch
+    views = [(t.data_ptr(), r, cs) for t, (r, cs) in zip((z2, shift, s), strides)]
+    if b * h * w * max(ch, *(r for r, _ in strides)) >= 2**31:
+        raise ValueError("coupling_transform: the kernel indexes in 32 bits; "
+                         f"z2 {tuple(z2.shape)} is too large")
+    plan = coupling_plan(b, n)
+    out = torch.empty((b, h, w, ch), device=z2.device, dtype=torch.float32)
     ld = torch.empty((b,), device=z2.device, dtype=torch.float32)
     with torch.cuda.device(z2.device):
-        kern[(b,)](z2, shift, s, out, ld, n, REVERSE=bool(reverse),
-                   BLOCK=1024, num_warps=4)
+        err = lib.coupling_launch(
+            *(a for v in views for a in v), out.data_ptr(), ld.data_ptr(),
+            b, n, ch, coupling_mode(ch, n, views), plan.threads, int(reverse),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "coupling", err)
     coupling_transform.launches += 1
     return out, ld
 
@@ -175,10 +260,10 @@ class _Coupling(torch.autograd.Function):
     """Kernel forward; the closed-form backward of the TPU kernel's VJP."""
 
     @staticmethod
-    def forward(ctx, z2, shift, s, reverse):
+    def forward(ctx, z2, shift, s, reverse, strides):
         ctx.save_for_backward(z2, shift, s)
         ctx.reverse = reverse
-        return _coupling_launch(z2, shift, s, reverse)
+        return _coupling_launch(z2, shift, s, reverse, strides)
 
     @staticmethod
     def backward(ctx, g_out, g_ld):
@@ -186,23 +271,28 @@ class _Coupling(torch.autograd.Function):
         gl = g_ld.reshape((-1,) + (1,) * (s.dim() - 1))
         if not ctx.reverse:
             dz2 = g_out * torch.exp(s)
-            return dz2, dz2, dz2 * (z2 + shift) + gl, None
+            return dz2, dz2, dz2 * (z2 + shift) + gl, None, None
         dz2 = g_out * torch.exp(-s)
-        return dz2, -g_out, -dz2 * z2 + gl, None
+        return dz2, -g_out, -dz2 * z2 + gl, None, None
 
 
 def coupling_transform(z2, shift, s, reverse: bool = False):
-    """(z2', logdet[B]) for the affine coupling tail, NHWC f32."""
-    if not _check("coupling_transform", (z2, shift, s), (z2.shape,) * 3):
+    """(z2', logdet[B]) for the affine coupling tail, NHWC f32. The inputs
+    may be views with channel stride 1 or 2 (:func:`nhwc_view`); z2' is
+    contiguous."""
+    on_card = _check("coupling_transform", (z2, shift, s), (z2.shape,) * 3,
+                     contiguous=False)
+    strides = [nhwc_view(name, t) for name, t in (("z2", z2), ("shift", shift), ("s", s))]
+    if not on_card:
         return coupling_transform_ref(z2, shift, s, reverse)
-    return _Coupling.apply(z2, shift, s, bool(reverse))
+    return _Coupling.apply(z2, shift, s, bool(reverse), strides)
 
 
 coupling_transform.launches = 0
 
 
 def _gates_launch(gates, c, w_ci, w_cf, w_co):
-    _, kern = _kernels()
+    kern = _gates_jit()
     _, h, w, hc = c.shape
     h_next = torch.empty_like(c)
     c_next = torch.empty_like(c)
@@ -254,35 +344,67 @@ def convlstm_gates(gates, c, w_ci, w_cf, w_co):
 convlstm_gates.launches = 0
 
 
-MAX_INVCONV_CHANNELS = 64  # W [C, C+1] and a row tile fit the default 48 KB of shared memory
+MAX_INVCONV_CHANNELS = 64  # the kernel's shared memory holds e^logs and b·e^logs of 64
+AINV_WIDTHS = (4, 8, 16, 32, 64)  # the kernel's compile-time widths
+AINV_MAX_THREADS = 256
+N_SMS = 132  # streaming multiprocessors of one H100 SXM
 
 
-def _ainv_lib():
-    from ._build import load
+class AinvPlan(NamedTuple):
+    """The launch geometry of ``csrc/actnorm_invconv.cu`` on x [rows, C]."""
 
-    lib = load("actnorm_invconv")
-    if not getattr(lib, "_typed", False):
-        lib.actnorm_invconv_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        lib.actnorm_invconv_launch.restype = ctypes.c_int
-        lib.actnorm_invconv_error_string.argtypes = [ctypes.c_int]
-        lib.actnorm_invconv_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
+    vec: int  # 1: the instance of compile-time width C, 16-byte loads; 0: run-time C
+    lanes: int  # threads that share one 4-wide output vector (1 where vec is 0)
+    groups: int  # 4-wide output vectors of a row per block, a power-of-2 divisor of C/4 (0: vec 0)
+    rows_per_block: int  # block (i, j) takes rows [i·rows_per_block, ...), vectors [j·groups, ...)
+    threads: int  # rows_per_block · groups · lanes (rows_per_block · C where vec is 0)
+    blocks: int  # over both grid axes
+
+
+def ainv_plan(rows: int, c: int, *, aligned: bool = True) -> AinvPlan:
+    """The launch geometry of the folded actnorm + 1x1 on x [rows, c]. A
+    pure function of the shapes (and of whether the pointers are 16-byte
+    aligned).
+
+    At c in ``AINV_WIDTHS`` (and aligned pointers) a thread computes a
+    4-wide output vector of one row; from c = 32 the c-term sum of each
+    output is split over ``lanes`` = 4 threads, and a block computes
+    ``groups`` = 2 output vectors of its rows (8 outputs, so it reads 8 rows
+    of W, not all c). Any other c <= 64 takes the run-time-width instance,
+    one thread per output. The blocks are at most ``N_SMS``, one per SM, of
+    at most ``AINV_MAX_THREADS`` threads. This plan was the fastest or
+    within 0.05 µs of it at every scale of ``rfn_mnist_production`` on the
+    H100 (``PERF.md``); ``csrc/actnorm_invconv.cu`` compiles only the lanes
+    it picks."""
+    if rows < 1 or not 1 <= c <= MAX_INVCONV_CHANNELS:
+        raise ValueError(f"ainv_plan: bad shape (rows={rows}, C={c}); the kernel "
+                         f"takes 1 to {MAX_INVCONV_CHANNELS} channels")
+    vec = int(aligned and c in AINV_WIDTHS)
+    if not vec:
+        lanes, groups, col_blocks, per_row = 1, 0, 1, c
+    else:
+        lanes, groups = (4 if c >= 32 else 1), min(c // 4, 2)
+        col_blocks, per_row = c // 4 // groups, groups * lanes
+    rpb = max(1, min(AINV_MAX_THREADS // per_row, _cdiv(rows * col_blocks, N_SMS)))
+    return AinvPlan(vec, lanes, groups, rpb, rpb * per_row, _cdiv(rows, rpb) * col_blocks)
+
+
+_AINV_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _ainv_launch(x, bias, logs, w):
-    lib = _ainv_lib()
+    lib = _load("actnorm_invconv", _AINV_ARGS)
     c = x.shape[-1]
+    rows = x.numel() // c
     y = torch.empty_like(x)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, y))
+    plan = ainv_plan(rows, c, aligned=aligned)
     with torch.cuda.device(x.device):
         err = lib.actnorm_invconv_launch(
             x.data_ptr(), bias.data_ptr(), logs.data_ptr(), w.data_ptr(),
-            y.data_ptr(), x.numel() // c, c,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError("actnorm_invconv launch failed: "
-                           + lib.actnorm_invconv_error_string(err).decode())
+            y.data_ptr(), rows, c, plan.vec, plan.lanes, plan.rows_per_block,
+            plan.groups, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "actnorm_invconv", err)
     actnorm_invconv.launches += 1
     return y
 

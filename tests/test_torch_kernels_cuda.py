@@ -5,9 +5,10 @@ where there is none. On the card the same comparisons, at the serving
 path's full shapes, run in ``python3 chip_smoke.py``.
 
 Tolerances as in chip_smoke.py, each element within tol·(1+|ref|): 1e-5 for
-the elementwise kernels and the folded 1x1, 1e-4 for one GlowStep and for
-the chain after K steps of three convs each; two launches of a GlowStep
-kernel on the same inputs must agree bit for bit. Each autograd Function's
+the elementwise kernels and the folded 1x1, 1e-4 for the coupling's logdet
+(a sum of up to 2,048 terms), one GlowStep and the chain after K steps of
+three convs each; two launches of the coupling, the folded 1x1 or a
+GlowStep kernel on the same inputs must agree bit for bit. Each autograd Function's
 gradients are held to autograd through the plain version, 1e-4 of
 1+|ref| (the forward values they start from differ by the kernel's
 rounding). The plain side runs with TF32 off.
@@ -18,11 +19,13 @@ import torch
 
 from recurrent_flows_tpu_torch.ops import (
     GlowStepParams,
+    ainv_plan,
     actnorm_invconv,
     actnorm_invconv_ref,
     convlstm_gates,
     convlstm_gates_ref,
     coupling_transform,
+    coupling_plan,
     coupling_transform_ref,
     glowchain,
     glowchain_ref,
@@ -57,6 +60,76 @@ def test_coupling_kernel_matches_plain(cuda, reverse):
     ref_out, ref_ld = coupling_transform_ref(z2, shift, 0.5 * s, reverse)
     _close(out, ref_out, 1e-5)
     _close(ld, ref_ld, 1e-5)
+
+
+def _coupling_views(cuda, b, hw, ch, layout):
+    """(z2, shift, s) of [b, hw, hw, ch]: contiguous, or as AffineCoupling
+    gives them, the 'split' half of x and the 'cross' half of the net's
+    output (s contiguous, or with the 'none' clamp the other 'cross' half)."""
+    def n(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=cuda, device="cuda")
+
+    if layout == "contiguous":
+        return n(b, hw, hw, ch), n(b, hw, hw, ch), n(b, hw, hw, ch, scale=0.5)
+    x, h = n(b, hw, hw, 2 * ch), n(b, hw, hw, 2 * ch, scale=0.5)
+    s = h[..., 1::2] if layout == "cross s" else torch.tanh(h[..., 1::2])
+    return x[..., ch:], h[..., 0::2], s
+
+
+def _coupling_agrees(cuda, b, hw, ch, layout):
+    z2, shift, s = _coupling_views(cuda, b, hw, ch, layout)
+    for reverse in (False, True):
+        n = coupling_transform.launches
+        out, ld = coupling_transform(z2, shift, s, reverse)
+        out2, ld2 = coupling_transform(z2, shift, s, reverse)
+        torch.cuda.synchronize()
+        assert coupling_transform.launches == n + 2
+        ref_out, ref_ld = coupling_transform_ref(z2, shift, s, reverse)
+        assert out.is_contiguous()
+        _close(out, ref_out, 1e-5)
+        _close(ld, ref_ld, 1e-4)
+        assert torch.equal(out, out2) and torch.equal(ld, ld2)
+
+
+# z2 [B, hw, hw, C/2] of the serving request (B=8) and of the train step's
+# five scales (B=30)
+COUPLING_SHAPES = [(8, 32, 2)] + [(30, 32 >> l, 2 << l) for l in range(5)]
+
+
+@pytest.mark.parametrize("layout", ["split/cross", "contiguous"])
+@pytest.mark.parametrize("b,hw,ch", COUPLING_SHAPES)
+def test_coupling_kernel_at_production_shapes(cuda, b, hw, ch, layout):
+    _coupling_agrees(cuda, b, hw, ch, layout)
+
+
+@pytest.mark.parametrize("b", [1, 7, 33])
+@pytest.mark.parametrize("hw,ch", [(32, 2), (8, 8)])
+def test_coupling_kernel_at_ragged_batches(cuda, b, hw, ch):
+    _coupling_agrees(cuda, b, hw, ch, "split/cross")
+
+
+@pytest.mark.parametrize("layout", ["split/cross", "contiguous", "cross s"])
+@pytest.mark.parametrize("hw,ch", [(5, 2), (4, 6), (3, 7), (2, 48), (1, 2)])
+def test_coupling_kernel_at_odd_widths(cuda, hw, ch, layout):
+    # 4-byte loads where C/2 is no multiple of 4 (or 2 at an odd H·W), or a
+    # view's pointer is not 16-byte aligned
+    _coupling_agrees(cuda, 3, hw, ch, layout)
+
+
+def test_coupling_kernel_raises_on_other_layouts(cuda):
+    x = torch.randn(2, 8, 8, 8, generator=cuda, device="cuda")
+    with pytest.raises(ValueError, match="row stride"):
+        coupling_transform(x[..., ::4], x[..., 1::4], x[..., 2::4])
+    t = x[..., :4].transpose(1, 2)
+    with pytest.raises(ValueError, match="row stride"):
+        coupling_transform(t, t, t)
+
+
+@pytest.mark.parametrize("b,hw,ch", [(2, 64, 4), (3, 48, 6)])
+def test_coupling_kernel_loops_over_large_samples(cuda, b, hw, ch):
+    # more groups of 4 values than a block has threads: each thread loops
+    assert coupling_plan(b, hw * hw * ch).threads * 4 < hw * hw * ch
+    _coupling_agrees(cuda, b, hw, ch, "split/cross")
 
 
 def test_gates_kernel_matches_plain(cuda):
@@ -190,19 +263,47 @@ def test_glow_kernels_under_other_launch_plans(cuda, fixed, monkeypatch):
         module._plan_ints.cache_clear()
 
 
-@pytest.mark.parametrize("rows,c", [(30 * 32 * 32, 4), (1000, 8), (120, 64), (7, 2)])
-def test_actnorm_invconv_kernel_matches_plain(cuda, rows, c):
-    x = torch.randn(rows, c, generator=cuda, device="cuda")
+def _ainv_agrees(cuda, rows, c, offset=0):
+    """The kernel against its plain version on x [rows, c] (starting
+    ``offset`` floats into its buffer), and a second launch bit for bit."""
+    x = torch.randn(rows * c + offset, generator=cuda, device="cuda")[offset:].view(rows, c)
     bias, logs = (0.3 * torch.randn(c, generator=cuda, device="cuda") for _ in range(2))
     w = torch.randn(c, c, generator=cuda, device="cuda")
     n = actnorm_invconv.launches
     y = actnorm_invconv(x, bias, logs, w)
+    y2 = actnorm_invconv(x, bias, logs, w)
     torch.cuda.synchronize()
-    assert actnorm_invconv.launches == n + 1
+    assert actnorm_invconv.launches == n + 2
     _close(y, actnorm_invconv_ref(x, bias, logs, w), 1e-5)
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("rows,c", [(30 * 32 * 32, 4), (1000, 8), (120, 64), (7, 2)])
+def test_actnorm_invconv_kernel_matches_plain(cuda, rows, c):
+    _ainv_agrees(cuda, rows, c)
     with pytest.raises(ValueError, match="at most"):
         actnorm_invconv(torch.zeros(4, 66, device="cuda"), torch.zeros(66, device="cuda"),
                         torch.zeros(66, device="cuda"), torch.zeros(66, 66, device="cuda"))
+
+
+# x [30·H·W, C] at the five scales of the train step, and ragged row counts
+@pytest.mark.parametrize("rows,c", [(30 * 1024, 4), (30 * 256, 8), (30 * 64, 16),
+                                    (30 * 16, 32), (30 * 4, 64), (33 * 16, 32),
+                                    (7 * 4, 64), (1, 4), (131, 16)])
+def test_actnorm_invconv_kernel_at_production_and_ragged_shapes(cuda, rows, c):
+    _ainv_agrees(cuda, rows, c)
+
+
+@pytest.mark.parametrize("rows,c", [(50, 2), (50, 6), (50, 7), (50, 48), (1, 1)])
+def test_actnorm_invconv_kernel_at_odd_widths(cuda, rows, c):
+    _ainv_agrees(cuda, rows, c)
+
+
+@pytest.mark.parametrize("c", [4, 16, 64])
+def test_actnorm_invconv_kernel_on_unaligned_rows(cuda, c):
+    # x one float into its buffer: the run-time-width instance
+    assert ainv_plan(30, c, aligned=False).vec == 0
+    _ainv_agrees(cuda, 30, c, offset=1)
 
 
 def _grads_match(fn, ref, inputs, tol=1e-4):
@@ -226,6 +327,18 @@ def test_coupling_function_gradients(cuda, reverse):
     ins = [0.5 * torch.randn(3, 16, 16, 4, generator=cuda, device="cuda") for _ in range(3)]
     _grads_match(lambda i: coupling_transform(*i, reverse),
                  lambda i: coupling_transform_ref(*i, reverse), ins)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_coupling_function_gradients_through_strided_views(cuda, reverse):
+    # x and the net's output h as leaves; the kernel reads their halves
+    x = torch.randn(3, 16, 16, 8, generator=cuda, device="cuda")
+    h = 0.5 * torch.randn(3, 16, 16, 8, generator=cuda, device="cuda")
+
+    def run(f):
+        return lambda i: f(i[0][..., 4:], i[1][..., 0::2], torch.tanh(i[1][..., 1::2]), reverse)
+
+    _grads_match(run(coupling_transform), run(coupling_transform_ref), [x, h])
 
 
 def test_gates_function_gradients(cuda):
