@@ -20,11 +20,11 @@ C ``chain_impl='all'``. Phase by phase:
    call computes the same function, that call, beside the least time the
    card could take; for the coupling (on the strided 'split'/'cross' views
    AffineCoupling passes it, which must give what their contiguous copies
-   give) and the folded 1x1 also an in-place add over as much data, for
-   them and the two GlowStep kernels the launch plan
-   of every shape and a second launch that must repeat the first bit for
-   bit; then each kernel's autograd Function against autograd through its
-   plain version;
+   give), the folded 1x1 and the gates (at B=8 and B=30, with the host's
+   µs per eager call) also an in-place add over as much data, for all five
+   the launch plan of every shape and a second launch that must repeat
+   the first bit for bit; then each kernel's autograd Function against
+   autograd through its plain version;
 4. serving: warm-up plus 3 requests of 8 sequences through ``Predictor``,
    with the launch count of every kernel per request, then one more
    request under ``torch.profiler`` (device busy time, idle share, device
@@ -164,13 +164,14 @@ FLOW_SCALES = [(32 >> l, 4 << l) for l in range(5)]
 
 def small_ms(fn) -> float:
     """``cuda_ms`` for the kernels of a few microseconds (the launch floor,
-    the coupling, the folded 1x1): the median of 5 replays of 100 calls."""
+    the coupling, the folded 1x1, the gates): the median of 5 replays of 100
+    calls."""
     return cuda_ms(fn, iters=100, repeats=5)
 
 
 def launch_floor_ms() -> float:
     """Device time of one in-place add on a one-element tensor: the least a
-    standalone launch costs, the yardstick of the two small flow kernels."""
+    standalone launch costs, the yardstick of the three small kernels."""
     one = torch.zeros(1, device="cuda")
     return small_ms(lambda: one.add_(1.0))
 
@@ -217,13 +218,37 @@ def ainv_times(fn, x, bias, logs, w) -> dict:
                 add_ms=small_ms(lambda: add.add_(1.0)))
 
 
+def eager_us(fn, calls: int = 1000) -> float:
+    """Host µs per eager call of ``fn``: ``time.perf_counter`` around
+    ``calls`` calls with one synchronize at the end, after a warm-up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def gates_times(fn, gates, c, peeps) -> dict:
+    """Device ms of ``fn(gates, c, *peeps)`` beside an in-place add over c
+    (``add_ms``), and the host µs of one eager call under ``no_grad`` as the
+    serving rollout makes it (``host_us``)."""
+    add = torch.zeros_like(c)
+    with torch.no_grad():
+        host_us = eager_us(lambda: fn(gates, c, *peeps))
+    return dict(ms=small_ms(lambda: fn(gates, c, *peeps)),
+                add_ms=small_ms(lambda: add.add_(1.0)), host_us=host_us)
+
+
 # device kernels by name: the port's own, then cuDNN convolutions with
 # their layout transposes, then cuBLAS products and triangular solves
 KERNEL_KINDS = (("glowchain", ("glowchain",)),
                 ("glowstep", ("glowstep",)),
                 ("actnorm_invconv", ("actnorm_invconv", "ainv_kernel")),
                 ("coupling_transform", ("coupling_kernel",)),
-                ("convlstm_gates", ("_gates_kernel",)),
+                ("convlstm_gates", ("gates_kernel",)),
                 ("conv", ("conv", "fprop", "cudnn", "winograd", "nchw", "nhwc")),
                 ("gemm", ("gemm", "gemv", "trsm")))
 
@@ -354,8 +379,8 @@ def check_kernels(model, record):
     from recurrent_flows_tpu_torch.ops import (
         GlowStepParams, actnorm_invconv, actnorm_invconv_ref, ainv_plan, convlstm_gates,
         convlstm_gates_ref, coupling_mode, coupling_plan, coupling_transform,
-        coupling_transform_ref, glowchain, glowchain_ref, glowstep, glowstep_ref,
-        launch_plan, nhwc_view)
+        coupling_transform_ref, gates_plan, glowchain, glowchain_ref, glowstep,
+        glowstep_ref, launch_plan, nhwc_view)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -418,23 +443,42 @@ def check_kernels(model, record):
         **bound(t["n_bytes"], t["flops"]), request_ms=rows[0]["ms"],
         shapes=[r["shape"] for r in rows])
 
-    # ConvLSTM gates: gates [B,2,2,800], c [B,2,2,200], B=8 (timed) and 30
+    # ConvLSTM gates: gates [B,2,2,800] -> h', c' [B,2,2,200] at the train
+    # step (B=30) and the request (B=8); times summed over the two shapes
     hc = model.cfg.h_dim
-    worst = 0.0
+    worst, t = 0.0, dict(ms=0.0, plain_ms=0.0, n_bytes=0, flops=0)
     for batch in (TRAIN_BATCH, BATCH):
         gates, c = rnd(batch, 2, 2, 4 * hc), rnd(batch, 2, 2, hc)
         peeps = [rnd(1, 2, 2, hc, scale=0.1) for _ in range(3)]
-        worst = max(worst, check_elementwise(
+        plan = gates_plan(batch, 4, hc)
+        e = check_elementwise(
             f"convlstm_gates B={batch}", convlstm_gates(gates, c, *peeps),
-            convlstm_gates_ref(gates, c, *peeps), (TOL_ELEMENTWISE,) * 2))
-    print(f"convlstm_gates: err {worst:.3e}")
+            convlstm_gates_ref(gates, c, *peeps), (TOL_ELEMENTWISE,) * 2)
+        worst = max(worst, e)
+        check_repeats(f"convlstm_gates B={batch}", lambda: convlstm_gates(gates, c, *peeps))
+        row = dict(shape=list(gates.shape), plan=plan._asdict(), err=e,
+                   **gates_times(convlstm_gates, gates, c, peeps),
+                   plain_ms=cuda_ms(lambda: convlstm_gates_ref(gates, c, *peeps)),
+                   # gates, c and the peepholes in, h and c out; ~25 operations per state
+                   n_bytes=nbytes(gates, c, *peeps, c, c), flops=25 * c.numel())
+        row.update(bound(row["n_bytes"], row["flops"]))
+        record["convlstm_gates"].append(row)
+        print(f"convlstm_gates gates {row['shape']}: plan {plan.blocks} blocks of "
+              f"{plan.threads} threads, one state each; "
+              f"err {e:.3e}, {row['ms']:.5f} ms ({row['ms'] / floor:.2f} floors), in-place "
+              f"add {row['add_ms']:.5f}, plain {row['plain_ms']:.5f}, bound "
+              f"{row['bound_ms']:.6f} ({row['bound_by']}), {row['host_us']:.1f} µs of "
+              "host per eager call")
+        for k in t:
+            t[k] += row[k]
+    rows = record["convlstm_gates"]
+    # ms, plain_ms and bound_ms are sums over `shapes`; request_ms is the
+    # serving request's shape alone, the one shape timed before the train
+    # shape was
     kernels["convlstm_gates"] = dict(
-        max_abs_err=worst,
-        ms=cuda_ms(lambda: convlstm_gates(gates, c, *peeps)),
-        plain_ms=cuda_ms(lambda: convlstm_gates_ref(gates, c, *peeps)),
-        library_ms=None,
-        # gates, c and the peepholes in, h and c out; ~25 operations per state
-        **bound(nbytes(gates, c, *peeps, c, c), 25 * c.numel()))
+        max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"], library_ms=None,
+        **bound(t["n_bytes"], t["flops"]), request_ms=rows[-1]["ms"],
+        shapes=[r["shape"] for r in rows])
 
     # actnorm_invconv: the folded actnorm -> 1x1 of every scale of the train
     # step, x [30·H·W, C], on the model's own weights; times are summed over
@@ -845,7 +889,7 @@ SOURCES = {
                            "recurrent_flows_tpu/ops/pallas/fused.py:75"),
     "actnorm_invconv": ("cuda", "recurrent_flows_tpu_torch/csrc/actnorm_invconv.cu",
                         "recurrent_flows_tpu/ops/pallas/fused.py:166"),
-    "convlstm_gates": ("triton", "recurrent_flows_tpu_torch/ops/fused.py",
+    "convlstm_gates": ("cuda", "recurrent_flows_tpu_torch/csrc/convlstm_gates.cu",
                        "recurrent_flows_tpu/ops/pallas/fused.py:257"),
     "glowstep": ("cuda", "recurrent_flows_tpu_torch/csrc/glowstep.cu",
                  "recurrent_flows_tpu/ops/pallas/glowstep.py:164"),
@@ -870,7 +914,7 @@ def main() -> None:
                   torch=torch.__version__, cuda=torch.version.cuda,
                   glowchain_checks=[], glowchain_ms=[], glowchain_train_ms=[],
                   glowstep_checks=[], glowstep_ms=[], actnorm_invconv=[],
-                  coupling_transform=[], launch_plans=[])
+                  coupling_transform=[], convlstm_gates=[], launch_plans=[])
 
     # phase 2: build
     t0 = time.perf_counter()

@@ -39,7 +39,7 @@ def _nvcc() -> str:
                        "toolkit (CUDA_HOME or nvcc on PATH)")
 
 
-SOURCES = ("actnorm_invconv", "coupling", "glowstep", "glowchain")
+SOURCES = ("actnorm_invconv", "convlstm_gates", "coupling", "glowstep", "glowchain")
 
 
 def _lib_path(name: str) -> Path:

@@ -1,5 +1,5 @@
-"""The coupling tail and the folded actnorm + 1x1 (CUDA C++) and the
-ConvLSTM gates (Triton), each beside its plain PyTorch version.
+"""The coupling tail, the folded actnorm + 1x1 and the ConvLSTM gates in
+CUDA C++, each beside its plain PyTorch version.
 
 Replaces ``recurrent_flows_tpu/ops/pallas/fused.py``:
 
@@ -15,27 +15,26 @@ Replaces ``recurrent_flows_tpu/ops/pallas/fused.py``:
   folded into the invertible 1x1, in CUDA C++ (``csrc/actnorm_invconv.cu``);
   :func:`ainv_plan` decides its geometry.
 * ``convlstm_gates`` replaces ``_gates_pallas`` (``fused.py:257``): the
-  peephole ConvLSTM update from the fused gate-conv output. One
-  elementwise pass with no reduction and no reuse, bound by bytes
-  (5·hc in, 2·hc out per position, peepholes broadcast over B); Triton's
-  masked block loads read each input once and write each output once.
+  peephole ConvLSTM update from the fused gate-conv output, in CUDA C++
+  (``csrc/convlstm_gates.cu``). One elementwise pass with no reduction
+  (5·hc in, 2·hc out per position, peepholes broadcast over B);
+  :func:`gates_plan` decides its geometry.
 
 The source notes in ``csrc/`` say what bounds each CUDA kernel on the H100
 and what its design does about it. Dispatch is by device: a CPU tensor
 takes the plain version (autograd differentiates it directly), a CUDA
 tensor launches the kernel or raises; nothing falls back and nothing is
 copied behind the caller's back. Each wrapper counts its launches in
-``<wrapper>.launches``. Triton is imported, and every kernel is compiled,
-on the first launch only. On the card each kernel is the forward of a
-``torch.autograd.Function`` whose backward is plain PyTorch, as the TPU
-kernels' VJPs are plain jnp: the closed forms for the coupling and the
-folded 1x1, the plain version re-run under autograd for the gates.
+``<wrapper>.launches``. Every kernel is built on its first launch only. On
+the card each kernel is the forward of a ``torch.autograd.Function`` whose
+backward is plain PyTorch, as the TPU kernels' VJPs are plain jnp: the
+closed forms for the coupling and the folded 1x1, the plain version re-run
+under autograd for the gates.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -68,52 +67,6 @@ def convlstm_gates_ref(gates, c, w_ci, w_cf, w_co):
 def actnorm_invconv_ref(x, bias, logs, w):
     """Plain version: ((x + bias)·e^logs) @ wᵀ over the last axis."""
     return ((x + bias) * torch.exp(logs)) @ w.T
-
-
-# ---------------------------------------------------------------------------
-# Triton kernel (a plain function here; jitted on first launch, when
-# ``triton``/``tl`` become module globals — see _gates_jit())
-# ---------------------------------------------------------------------------
-
-
-def _gates_kernel(g_ptr, c_ptr, wci_ptr, wcf_ptr, wco_ptr, h_ptr, cn_ptr,
-                  n, hc, hw_hc, BLOCK: tl.constexpr):
-    pid = tl.program_id(0)
-    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    m = offs < n
-    pos = offs // hc
-    ch = offs - pos * hc
-    gb = pos * (4 * hc) + ch
-    g_i = tl.load(g_ptr + gb, mask=m, other=0.0)
-    g_f = tl.load(g_ptr + gb + hc, mask=m, other=0.0)
-    g_o = tl.load(g_ptr + gb + 2 * hc, mask=m, other=0.0)
-    g_g = tl.load(g_ptr + gb + 3 * hc, mask=m, other=0.0)
-    c = tl.load(c_ptr + offs, mask=m, other=0.0)
-    po = offs % hw_hc  # peepholes [1,H,W,hc] broadcast over the batch
-    w_ci = tl.load(wci_ptr + po, mask=m, other=0.0)
-    w_cf = tl.load(wcf_ptr + po, mask=m, other=0.0)
-    w_co = tl.load(wco_ptr + po, mask=m, other=0.0)
-    i = 1.0 / (1.0 + tl.exp(-(g_i + w_ci * c)))
-    f = 1.0 / (1.0 + tl.exp(-(g_f + w_cf * c)))
-    # tanh(v) = sign(v)·(1 - e^{-2|v|}) / (1 + e^{-2|v|}), overflow-free
-    e = tl.exp(-2.0 * tl.abs(g_g))
-    g = tl.where(g_g >= 0, 1.0, -1.0) * (1.0 - e) / (1.0 + e)
-    c_next = f * c + i * g
-    o = 1.0 / (1.0 + tl.exp(-(g_o + w_co * c_next)))
-    e = tl.exp(-2.0 * tl.abs(c_next))
-    t = tl.where(c_next >= 0, 1.0, -1.0) * (1.0 - e) / (1.0 + e)
-    tl.store(h_ptr + offs, o * t, mask=m)
-    tl.store(cn_ptr + offs, c_next, mask=m)
-
-
-@functools.cache
-def _gates_jit():
-    """Import Triton and jit the gates kernel (first launch only)."""
-    global triton, tl
-    import triton
-    import triton.language as tl
-
-    return triton.jit(_gates_kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -291,17 +244,55 @@ def coupling_transform(z2, shift, s, reverse: bool = False):
 coupling_transform.launches = 0
 
 
+GATES_MAX_THREADS = 256
+_GRID_MAX = 65535  # the largest grid along y and z
+
+
+class GatesPlan(NamedTuple):
+    """The launch geometry of ``csrc/convlstm_gates.cu`` on gates
+    [B, H, W, 4hc]: a grid (H·W, channel_blocks, B), one state per thread."""
+
+    threads: int  # per block, a multiple of 32; thread t of block (p, j, b) takes channel j·threads + t
+    channel_blocks: int  # ceil(hc / threads)
+    blocks: int  # H·W · channel_blocks · B
+
+
+def gates_plan(b: int, hw: int, hc: int) -> GatesPlan:
+    """The launch geometry of the ConvLSTM gates on b samples of hw
+    positions and hc channels. A pure function of the shapes.
+
+    A thread computes one state; a block, the channels of one position of
+    one sample, or an even share of them where they are more than
+    ``GATES_MAX_THREADS`` (224 threads at hc = 200: 32 blocks at B = 8, 120
+    at B = 30). More states per thread (4 or 2 channels by 16- or 8-byte
+    loads, or 2 samples sharing the peepholes) measured slower on the H100
+    (``PERF.md``)."""
+    if b < 1 or hw < 1 or hc < 1:
+        raise ValueError(f"gates_plan: bad shape (b={b}, hw={hw}, hc={hc})")
+    channel_blocks = _cdiv(hc, GATES_MAX_THREADS)
+    threads = _cdiv(_cdiv(hc, channel_blocks), 32) * 32
+    if b > _GRID_MAX:
+        raise ValueError(f"gates_plan: a batch of {b}; the kernel takes at most {_GRID_MAX}")
+    return GatesPlan(threads, channel_blocks, hw * channel_blocks * b)
+
+
+_GATES_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
 def _gates_launch(gates, c, w_ci, w_cf, w_co):
-    kern = _gates_jit()
-    _, h, w, hc = c.shape
+    lib = _load("convlstm_gates", _GATES_ARGS)
+    b, h, w, hc = c.shape
+    if gates.numel() >= 2**31:
+        raise ValueError("convlstm_gates: the kernel indexes in 32 bits; gates "
+                         f"{tuple(gates.shape)} is too large")
+    plan = gates_plan(b, h * w, hc)
     h_next = torch.empty_like(c)
     c_next = torch.empty_like(c)
-    n = c.numel()
-    block = 1024
     with torch.cuda.device(c.device):
-        kern[(-(-n // block),)](gates, c, w_ci, w_cf, w_co, h_next,
-                                       c_next, n, hc, h * w * hc,
-                                       BLOCK=block, num_warps=4)
+        err = lib.convlstm_gates_launch(
+            *(t.data_ptr() for t in (gates, c, w_ci, w_cf, w_co, h_next, c_next)),
+            b, h * w, hc, plan.threads, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "convlstm_gates", err)
     convlstm_gates.launches += 1
     return h_next, c_next
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device times of the two small flow kernels, ``coupling_transform`` and
-``actnorm_invconv``, of the port in a checkout, beside the launch floor:
-for a side-by-side run of two checkouts on one NVIDIA GPU, in one call.
+"""Device times of the three small kernels, ``coupling_transform``,
+``actnorm_invconv`` and ``convlstm_gates``, of the port in a checkout,
+beside the launch floor: for a side-by-side run of two checkouts on one
+NVIDIA GPU, in one call.
 
     python3 scripts/torch_flow_kernel_times.py [--root DIR] [--out NAME]
 
@@ -13,9 +14,11 @@ on the 'split'/'cross' views AffineCoupling passes and on contiguous copies
 (a package whose wrapper takes only contiguous tensors, as before the
 kernel read views, gets copies made in the timed call, as its
 AffineCoupling made them); ``actnorm_invconv`` at the train step's five
-scales beside ``F.linear`` (``ainv_times``), on random weights. Prints the
-card's name and power limit first; writes
-``chiprun_out/flow_kernel_times_<NAME>.json``.
+scales beside ``F.linear`` (``ainv_times``), on random weights;
+``convlstm_gates`` at the serving request's gates [8,2,2,800] and the train
+step's [30,2,2,800] (``gates_times``: device ms, an in-place add over c,
+host µs per eager call). Prints the card's name and power limit first;
+writes ``chiprun_out/flow_kernel_times_<NAME>.json``.
 """
 
 from __future__ import annotations
@@ -73,6 +76,12 @@ def main():
         w = torch.linalg.qr(rnd(c, c))[0].contiguous()
         report(f"actnorm_invconv scale {l} x {list(x.shape)}",
                chip_smoke.ainv_times(ops.actnorm_invconv, x, bias, logs, w))
+    hc = 200  # h_dim of rfn_mnist_production
+    for b in (chip_smoke.BATCH, chip_smoke.TRAIN_BATCH):
+        gates, c = rnd(b, 2, 2, 4 * hc), rnd(b, 2, 2, hc)
+        peeps = [rnd(1, 2, 2, hc, scale=0.1) for _ in range(3)]
+        report(f"convlstm_gates gates {list(gates.shape)}",
+               chip_smoke.gates_times(ops.convlstm_gates, gates, c, peeps))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / f"flow_kernel_times_{args.out}.json").write_text(

@@ -1,18 +1,20 @@
 """Each kernel of the port against its plain version on an NVIDIA GPU.
 
-Marked ``cuda``: they need a CUDA device with nvcc and triton, and skip
-where there is none. On the card the same comparisons, at the serving
+Marked ``cuda``: they need a CUDA device with nvcc, and skip where there
+is none. On the card the same comparisons, at the serving
 path's full shapes, run in ``python3 chip_smoke.py``.
 
 Tolerances as in chip_smoke.py, each element within tol·(1+|ref|): 1e-5 for
 the elementwise kernels and the folded 1x1, 1e-4 for the coupling's logdet
 (a sum of up to 2,048 terms), one GlowStep and the chain after K steps of
-three convs each; two launches of the coupling, the folded 1x1 or a
-GlowStep kernel on the same inputs must agree bit for bit. Each autograd Function's
+three convs each; two launches of any kernel on the same inputs must agree
+bit for bit. Each autograd Function's
 gradients are held to autograd through the plain version, 1e-4 of
 1+|ref| (the forward values they start from differ by the kernel's
 rounding). The plain side runs with TF32 off.
 """
+
+import math
 
 import pytest
 import torch
@@ -132,16 +134,47 @@ def test_coupling_kernel_loops_over_large_samples(cuda, b, hw, ch):
     _coupling_agrees(cuda, b, hw, ch, "split/cross")
 
 
-def test_gates_kernel_matches_plain(cuda):
-    hc = 24
-    gates = torch.randn(3, 4, 4, 4 * hc, generator=cuda, device="cuda")
-    c = torch.randn(3, 4, 4, hc, generator=cuda, device="cuda")
-    peeps = [0.1 * torch.randn(1, 4, 4, hc, generator=cuda, device="cuda")
-             for _ in range(3)]
+def _randn(cuda, shape, offset=0, scale=1.0):
+    """A contiguous tensor of N(0, scale²) that starts ``offset`` floats into
+    its buffer (offset 1: not 16-byte aligned)."""
+    t = scale * torch.randn(math.prod(shape) + offset, generator=cuda, device="cuda")
+    return t[offset:].view(shape)
+
+
+@pytest.mark.parametrize("b,h,w,hc,offset", [
+    (8, 2, 2, 200, 0), (30, 2, 2, 200, 0),  # the request's and the train step's
+    (1, 2, 2, 200, 0), (7, 2, 2, 200, 0), (33, 2, 2, 200, 0), (70, 2, 2, 200, 0),  # ragged
+    (3, 4, 4, 24, 0), (5, 2, 3, 16, 0), (2, 1, 2, 600, 0),  # H≠W, three channel blocks
+    (4, 3, 5, 6, 0), (6, 1, 4, 7, 0), (50, 3, 3, 7, 0),  # odd widths
+    (8, 2, 2, 200, 1), (30, 2, 2, 200, 1), (7, 3, 2, 16, 1),  # inputs not 16-byte aligned
+])
+def test_gates_kernel_matches_plain(cuda, b, h, w, hc, offset):
+    gates = _randn(cuda, (b, h, w, 4 * hc), offset)
+    c = _randn(cuda, (b, h, w, hc), offset)
+    peeps = [_randn(cuda, (1, h, w, hc), offset, 0.1) for _ in range(3)]
+    assert all(t.data_ptr() % 16 == 4 * offset for t in (gates, c, *peeps))
+    n = convlstm_gates.launches
+    got = convlstm_gates(gates, c, *peeps)
+    again = convlstm_gates(gates, c, *peeps)
+    torch.cuda.synchronize()
+    assert convlstm_gates.launches == n + 2
+    for a, a2, r in zip(got, again, convlstm_gates_ref(gates, c, *peeps)):
+        _close(a, r, 1e-5)
+        assert torch.equal(a, a2)
+
+
+def test_gates_kernel_on_inputs_whose_exponentials_overflow(cuda):
+    # |pre-activations| up to ~200: e^-v overflows to inf, 1 + e^-v passes
+    # 2^126; sigmoid must give 0 (not NaN) and tanh ±1
+    hc = 200
+    gates = 50 * torch.randn(8, 2, 2, 4 * hc, generator=cuda, device="cuda")
+    c = 50 * torch.randn(8, 2, 2, hc, generator=cuda, device="cuda")
+    peeps = [0.1 * torch.randn(1, 2, 2, hc, generator=cuda, device="cuda") for _ in range(3)]
     got = convlstm_gates(gates, c, *peeps)
     torch.cuda.synchronize()
-    for a, b in zip(got, convlstm_gates_ref(gates, c, *peeps)):
-        _close(a, b, 1e-5)
+    for a, r in zip(got, convlstm_gates_ref(gates, c, *peeps)):
+        assert torch.isfinite(a).all()
+        _close(a, r, 1e-5)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
