@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Drives the port's two main paths at the full width of
-``rfn_mnist_production`` on random weights made from a seed: the serving
-rollout (``Predictor.predict`` -> ``RFN.predict``, ``chain_impl='sample'``)
-and the training step (``Trainer.build`` -> ``Trainer.train_step`` ->
-``RFN.loss`` -> ``ListGlow.log_prob``, forward and backward, with Adam) in
-its three configurations: A the preset as it is, B ``coupling_impl='fused'``,
-C ``chain_impl='all'``. Phase by phase:
+``rfn_mnist_production``, then of ``rfn_bair`` and of a batch-norm variant
+of ``rfn_kth``, on random weights made from a seed: the serving rollout
+(``Predictor.predict`` -> ``RFN.predict``, ``chain_impl='sample'``) and the
+training step (``Trainer.build`` -> ``Trainer.train_step`` -> ``RFN.loss``
+-> ``ListGlow.log_prob``, forward and backward, with Adam) in its three
+configurations: A the preset as it is, B ``coupling_impl='fused'``, C
+``chain_impl='all'``. Phase by phase:
 
 1. the card: CUDA must be available (there is no CPU path);
 2. the build of the CUDA libraries (one nvcc per source, started together);
@@ -37,11 +38,25 @@ C ``chain_impl='all'``. Phase by phase:
    and C, with exact launch counts, ms and peak memory per step;
 7. one train step of A at a small batch on the card against the same step
    on the CPU, same weights and noise: the loss pieces and a few named
-   gradients.
+   gradients;
+8. the five kernels against their plain versions at the shapes of
+   ``rfn_bair`` and ``rfn_kth`` (the folded 1x1 at 12-96 channels and at
+   128-256, with its gradients above 64; the coupling at rfn_bair's
+   scales; the gates at h=256; the GlowStep kernels at rfn_bair's scale 3
+   and rfn_kth's scales 2-3), times beside bounds, bit-for-bit repeats;
+9. ``rfn_bair`` at full width: build with data-dependent init, 3 requests
+   of 8 sequences (2 context, 10 predicted frames), train steps of 32
+   sequences of 12 frames in A, B and C, with exact launch counts, a
+   profiled request and step, then card against CPU (rollout, train step);
+10. the batch-norm variant of ``rfn_kth`` (``flow_norm`` and ``base_norm``
+    'batchnorm', ``lu_decomposed=False``, ``track_running_stats``): build,
+    2 train steps that must move no running buffer, ``refresh_stats`` that
+    must move them, a request with ``eval_norm``, card against CPU.
 
 Any failure raises and the script exits non-zero. The last two lines of
-standard output are the kernels' JSON record and the device record; the
-full record is written to ``chiprun_out/chip_smoke.json``.
+standard output are the kernels' JSON record (with each kernel's launches
+per path) and the device record; the full record is written to
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -66,7 +81,7 @@ TOL_COUPLING_LD = 1e-4  # logdet: a sum of 2048 terms
 TOL_CHAIN = 1e-4  # 10 chained steps of 3 convs each
 TOL_CHAIN_LD = 1e-4  # summed coupling logdets of 10 steps
 TOL_STEP = 1e-4  # one GlowStep: 3 convs, sums of up to 2,592 terms
-TOL_INVCONV = 1e-5  # a C-term sum per output, C <= 64
+TOL_INVCONV = 1e-5  # a C-term sum per output
 # gradients through an autograd Function against autograd through the plain
 # version: the same backward arithmetic from forward values that differ by
 # the kernel's rounding
@@ -88,6 +103,12 @@ TOL_STEP_GRAD_STREAM = 3e-2
 # extractor and the LSTM
 TOL_FIRST_FRAME = 1e-3
 TOL_LATER_FRAMES = 1e-2
+# the same, relative to 1 + max|x| of the CPU's frames, for rfn_bair and
+# rfn_kth: on random weights their rollouts reach |x| ~1.5e3 where
+# rfn_mnist_production's stays under ~15, and the absolute tolerances above
+# are 1e-3 and 1e-2 of 1 + 15
+TOL_FIRST_FRAME_REL = TOL_FIRST_FRAME / 16
+TOL_LATER_FRAMES_REL = TOL_LATER_FRAMES / 16
 
 BATCH, N_COND, N_PRED, N_REQUESTS = 8, 5, 10, 3
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS_A = 30, 10, 3
@@ -323,16 +344,18 @@ class RecordedNoise:
         return u
 
 
-def moving_squares(rng, batch: int, t: int, size: int) -> np.ndarray:
-    """Context sequences in [0,1]: a bright square moving in a straight
-    line over a dim noisy background, one per sequence."""
-    x = 0.1 * rng.random((batch, t, size, size, 1), dtype=np.float32)
+def moving_squares(rng, batch: int, t: int, size: int, channels: int = 1) -> np.ndarray:
+    """Context sequences in [0,1]: a bright square (of a random colour where
+    there are several channels) moving in a straight line over a dim noisy
+    background, one per sequence."""
+    x = 0.1 * rng.random((batch, t, size, size, channels), dtype=np.float32)
     for b in range(batch):
         pos = rng.integers(0, size - 16, 2)
         vel = rng.integers(-3, 4, 2)
+        colour = 1.0 if channels == 1 else rng.uniform(0.3, 1.0, channels)
         for i in range(t):
             r, c = np.clip(pos + i * vel, 0, size - 16)
-            x[b, i, r:r + 16, c:c + 16, 0] = 1.0
+            x[b, i, r:r + 16, c:c + 16, :] = colour
     return x
 
 
@@ -489,7 +512,7 @@ def check_kernels(model, record):
             step = flow.step(l, 0)
             x = rnd(TRAIN_BATCH, hw, hw, c)
             bias, logs = step.norm.bias.detach(), step.norm.logs.detach()
-            w = step.invconv.weight(False).contiguous()
+            w = step.invconv.matrix(False).contiguous()
             y = actnorm_invconv(x, bias, logs, w)
             torch.cuda.synchronize()
             e = check_elementwise(f"actnorm_invconv scale {l}", (y,),
@@ -648,7 +671,7 @@ def check_gradients(model):
     with torch.no_grad():
         step = prep_glowstep_params(flow.step(2, 0), False)[0]
         chain = flow.chain_params(2, False)[0]
-        w = flow.step(2, 0).invconv.weight(False).contiguous()
+        w = flow.step(2, 0).invconv.matrix(False).contiguous()
     x, cond = rnd(TRAIN_BATCH, hw, hw, c), rnd(TRAIN_BATCH, hw, hw, cc)
     half = [rnd(TRAIN_BATCH, hw, hw, c // 2, scale=0.5) for _ in range(3)]
     lstm = [rnd(TRAIN_BATCH, 2, 2, 4 * hc), rnd(TRAIN_BATCH, 2, 2, hc)] + [
@@ -683,29 +706,230 @@ def check_gradients(model):
     return errs
 
 
+# rfn_bair: (H = W, C) of x at its four flow scales; the scale its with_skip
+# conditions leave to the glowstep/glowchain kernels (scales 1-2 have no
+# launch plan); its serving context
+BAIR_SCALES = [(32 >> l, 12 << l) for l in range(4)]
+BAIR_KERNEL_SCALES = [3]
+BAIR_N_COND, BAIR_TRAIN_BATCH = 2, 32
+# the folded 1x1 at widths no preset of this slice runs: gray at L = 6 (128),
+# RGB at L = 5 and gray at L = 7 (192, 256), on rows of 32·4·4
+WIDE_INVCONV = (128, 192, 256)
+# (H = W, C, cond) of the GlowStep kernels' new shapes: rfn_bair scale 3,
+# rfn_kth scales 2-3
+NEW_GLOW_SHAPES = [(4, 96, 384), (8, 16, 384), (4, 32, 384)]
+
+
+def glow_params(rnd, k: int, c: int, cc: int, u: int):
+    """Kernel-ready parameters of k stacked GlowSteps, drawn with fan-in
+    scales so that 10 steps stay finite (the recipe of the card tests)."""
+    from recurrent_flows_tpu_torch.ops import GlowStepParams
+
+    fan_a, fan_c = 9 * (c // 2 + cc), 9 * u
+    eye = torch.eye(c, device="cuda").repeat(k, 1, 1)
+    return GlowStepParams(
+        an_bias=rnd(k, c, scale=0.1), an_logs=rnd(k, c, scale=0.1),
+        w1x1=eye + rnd(k, c, c, scale=0.3 / c),
+        wa=rnd(k, 9, c // 2 + cc, u, scale=fan_a ** -0.5), ana_bias=rnd(k, u, scale=0.1),
+        ana_logs=rnd(k, u, scale=0.1), wb=rnd(k, u, u, scale=u ** -0.5),
+        anb_bias=rnd(k, u, scale=0.1), anb_logs=rnd(k, u, scale=0.1),
+        wc=rnd(k, 9, u, c, scale=0.3 * fan_c ** -0.5), bias_c=rnd(k, c, scale=0.1),
+        clamp_scale=1 + rnd(k, c // 2, scale=0.1), clamp_shift=rnd(k, c // 2, scale=0.1))
+
+
+def check_new_shapes(record):
+    """Every kernel against its plain version at the shapes rfn_bair and
+    rfn_kth give it (and the folded 1x1 at 128-256 channels), with the
+    tolerances of phase 3, a bit-for-bit repeat, device times beside their
+    bounds, and the folded 1x1's gradients above 64 channels. Returns per
+    kernel the worst error and the times summed over its shapes."""
+    import torch.nn.functional as F
+
+    from recurrent_flows_tpu_torch.ops import (
+        GlowStepParams, actnorm_invconv, actnorm_invconv_ref, ainv_plan, convlstm_gates,
+        convlstm_gates_ref, coupling_transform, coupling_transform_ref, gates_plan,
+        glowchain, glowchain_ref, glowstep, glowstep_ref, launch_plan)
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rnd = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale
+    out = {}
+
+    def add(name, row, err):
+        t = out.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                      library_ms=None, n_bytes=0, flops=0))
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        for k in ("ms", "plain_ms", "n_bytes", "flops"):
+            t[k] += row[k]
+        if row.get("library_ms") is not None:
+            t["library_ms"] = (t["library_ms"] or 0.0) + row["library_ms"]
+        record.setdefault(name, []).append(row)
+
+    # the folded 1x1: x [32·H·W, C] at rfn_bair's four scales, then 128-256
+    cases = [(BAIR_TRAIN_BATCH * hw * hw, c) for hw, c in BAIR_SCALES]
+    cases += [(BAIR_TRAIN_BATCH * 16, c) for c in WIDE_INVCONV]
+    for rows, c in cases:
+        x = rnd(rows, c)
+        bias, logs = rnd(c, scale=0.3), rnd(c, scale=0.3)
+        w = torch.linalg.qr(rnd(c, c))[0].contiguous()  # orthogonal, as InvConv's init
+        y = actnorm_invconv(x, bias, logs, w)
+        torch.cuda.synchronize()
+        e = check_elementwise(f"actnorm_invconv [{rows}, {c}]", (y,),
+                              (actnorm_invconv_ref(x, bias, logs, w),), (TOL_INVCONV,))
+        check_repeats(f"actnorm_invconv [{rows}, {c}]",
+                      lambda: (actnorm_invconv(x, bias, logs, w),))
+        check_elementwise(f"F.linear [{rows}, {c}]",
+                          (F.linear(x, *folded_linear(bias, logs, w)),), (y,), (1e-4,))
+        plan = ainv_plan(rows, c)
+        row = dict(shape=[rows, c], err=e, plan=plan._asdict(),
+                   **ainv_times(actnorm_invconv, x, bias, logs, w),
+                   plain_ms=cuda_ms(lambda: actnorm_invconv_ref(x, bias, logs, w)),
+                   n_bytes=nbytes(x, bias, logs, w, x), flops=2 * x.numel() * c + 2 * x.numel())
+        row.update(bound(row["n_bytes"], row["flops"]))
+        add("actnorm_invconv", row, e)
+        print(f"actnorm_invconv x[{rows}, {c}]: plan vec {plan.vec}, {plan.blocks} blocks of "
+              f"{plan.threads} threads, err {e:.3e}, {row['ms']:.5f} ms, plain "
+              f"{row['plain_ms']:.5f}, F.linear {row['library_ms']:.5f}, bound "
+              f"{row['bound_ms']:.6f} ({row['bound_by']})")
+    grads = {}
+    for c in (96, 256):
+        inputs = [rnd(BAIR_TRAIN_BATCH * 16, c), rnd(c, scale=0.3), rnd(c, scale=0.3),
+                  torch.linalg.qr(rnd(c, c))[0].contiguous()]
+        got = []
+        for f in (actnorm_invconv, actnorm_invconv_ref):
+            ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+            pg = torch.Generator(device="cuda").manual_seed(3)
+            o = f(*ins)
+            got.append(torch.autograd.grad((o * torch.randn(o.shape, generator=pg,
+                                                            device="cuda")).sum(), ins))
+        grads[c] = check_elementwise(f"gradient of actnorm_invconv at C={c}", got[0],
+                                     got[1], (TOL_GRAD,) * 4)
+    record["actnorm_invconv_grad_err"] = grads
+    print(f"gradient of actnorm_invconv above 64 channels: {grads}")
+
+    # the coupling tail: the serving request's reverse at scale 0 (B=8) and
+    # the train step's four scales forward (B=32), on AffineCoupling's views
+    shapes = [(BATCH, 32, 6, True)] + [(BAIR_TRAIN_BATCH, hw, c // 2, False)
+                                       for hw, c in BAIR_SCALES]
+    for b, hw, ch, rev in shapes:
+        x, h = rnd(b, hw, hw, 2 * ch), rnd(b, hw, hw, 2 * ch, scale=0.5)
+        z2, shift, s = x[..., ch:], h[..., 0::2], torch.tanh(h[..., 1::2])
+        e = 0.0
+        for reverse in (False, True):
+            e = max(e, check_elementwise(
+                f"coupling_transform {[b, hw, hw, ch]} reverse={reverse}",
+                coupling_transform(z2, shift, s, reverse),
+                coupling_transform_ref(z2, shift, s, reverse),
+                (TOL_ELEMENTWISE, TOL_COUPLING_LD)))
+        check_repeats(f"coupling_transform {[b, hw, hw, ch]}",
+                      lambda: coupling_transform(z2, shift, s, rev))
+        row = dict(shape=[b, hw, hw, ch], reverse=rev, err=e,
+                   **coupling_times(coupling_transform, z2, shift, s, rev),
+                   plain_ms=cuda_ms(lambda: coupling_transform_ref(z2, shift, s, rev)),
+                   n_bytes=nbytes(z2, shift, s, z2) + 4 * b, flops=4 * z2.numel())
+        row.update(bound(row["n_bytes"], row["flops"]))
+        add("coupling_transform", row, e)
+        print(f"coupling_transform z2 {row['shape']} {'reverse' if rev else 'forward'}: "
+              f"err {e:.3e}, {row['ms']:.5f} ms, plain {row['plain_ms']:.5f}, bound "
+              f"{row['bound_ms']:.6f} ({row['bound_by']})")
+
+    # the gates at h = 256, 4x4: the request (B=8) and the train step (B=32)
+    for b in (BATCH, BAIR_TRAIN_BATCH):
+        gates, c = rnd(b, 4, 4, 1024), rnd(b, 4, 4, 256)
+        peeps = [rnd(1, 4, 4, 256, scale=0.1) for _ in range(3)]
+        e = check_elementwise(f"convlstm_gates [{b},4,4,1024]",
+                              convlstm_gates(gates, c, *peeps),
+                              convlstm_gates_ref(gates, c, *peeps), (TOL_ELEMENTWISE,) * 2)
+        check_repeats(f"convlstm_gates [{b},4,4,1024]",
+                      lambda: convlstm_gates(gates, c, *peeps))
+        plan = gates_plan(b, 16, 256)
+        row = dict(shape=list(gates.shape), plan=plan._asdict(), err=e,
+                   **gates_times(convlstm_gates, gates, c, peeps),
+                   plain_ms=cuda_ms(lambda: convlstm_gates_ref(gates, c, *peeps)),
+                   n_bytes=nbytes(gates, c, *peeps, c, c), flops=25 * c.numel())
+        row.update(bound(row["n_bytes"], row["flops"]))
+        add("convlstm_gates", row, e)
+        print(f"convlstm_gates gates {row['shape']}: plan {plan.blocks} blocks of "
+              f"{plan.threads} threads, err {e:.3e}, {row['ms']:.5f} ms, plain "
+              f"{row['plain_ms']:.5f}, bound {row['bound_ms']:.6f} ({row['bound_by']})")
+
+    # glowstep and glowchain (K = 10) at rfn_bair scale 3 and rfn_kth scales
+    # 2-3, both directions, B = 8 and 32; timed: glowstep forward and the
+    # chain forward at B=32, the chain reverse at B=8
+    u = 256
+    for hw, c, cc in NEW_GLOW_SHAPES:
+        ps = glow_params(rnd, 10, c, cc, u)
+        p0 = GlowStepParams(*(t[0].contiguous() for t in ps))
+        for b in (BATCH, BAIR_TRAIN_BATCH):
+            plan = launch_plan(b, hw, hw, c, cc, u)
+            record.setdefault("launch_plans", []).append(
+                dict(shape=[b, hw, hw, c], cond=cc, **plan._asdict()))
+            x, cond = rnd(b, hw, hw, c), rnd(b, hw, hw, cc)
+            for reverse in (False, True):
+                for name, fn, ref, p, tol in (("glowstep", glowstep, glowstep_ref, p0, TOL_STEP),
+                                              ("glowchain", glowchain, glowchain_ref, ps,
+                                               TOL_CHAIN)):
+                    got = fn(x, cond, p, "realnvp", reverse)
+                    torch.cuda.synchronize()
+                    e = check_elementwise(f"{name} {[b, hw, hw, c]} cond {cc} "
+                                          f"reverse={reverse}", got,
+                                          ref(x, cond, p, "realnvp", reverse), (tol, tol))
+                    check_repeats(f"{name} {[b, hw, hw, c]} reverse={reverse}",
+                                  lambda: fn(x, cond, p, "realnvp", reverse))
+                    k = 1 if name == "glowstep" else 10
+                    timed = (b == BAIR_TRAIN_BATCH and not reverse) or (
+                        name == "glowchain" and b == BATCH and reverse)
+                    row = dict(shape=[b, hw, hw, c], cond=cc, reverse=reverse, err=e,
+                               ms=0.0, plain_ms=0.0, n_bytes=0, flops=0)
+                    if timed:
+                        row.update(
+                            ms=cuda_ms(lambda: fn(x, cond, p, "realnvp", reverse), iters=5),
+                            plain_ms=cuda_ms(lambda: ref(x, cond, p, "realnvp", reverse),
+                                             iters=5),
+                            n_bytes=nbytes(x, cond, *p, x) + 4 * b,
+                            flops=k * glowstep_flops(x, cond, u))
+                        row.update(bound(row["n_bytes"], row["flops"]))
+                        print(f"{name} {row['shape']} cond {cc} reverse={reverse}: "
+                              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+                              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                    add(name, row, e)
+        print(f"glowstep, glowchain {hw}x{hw}x{c} cond {cc}: B=8 and 32, both "
+              "directions agree and repeat")
+    for t in out.values():
+        t.update(bound(t.pop("n_bytes"), t.pop("flops")))
+    return out
+
+
 def with_glow(mcfg, **glow):
     return dataclasses.replace(mcfg, glow=dataclasses.replace(mcfg.glow, **glow))
 
 
-def serve(model, mcfg, tcfg, rng, record, card):
-    """Phases 4-5: the serving path through Predictor, then card against CPU.
+def request_launches(mcfg, chain_scales, n_cond: int) -> dict:
+    """Launches of one request: the h-LSTM over the n_cond-1 warm-up frames
+    and once per predicted frame; per predicted frame one glowchain per
+    chain scale and K coupling tails per other scale (the sampling direction
+    has no folded 1x1)."""
+    return dict(actnorm_invconv=0, convlstm_gates=n_cond - 1 + N_PRED,
+                coupling_transform=mcfg.K * (mcfg.L - len(chain_scales)) * N_PRED,
+                glowchain=len(chain_scales) * N_PRED, glowstep=0)
+
+
+def serve(model, mcfg, tcfg, rng, record, card, want, n_cond, label="request"):
+    """The serving path through Predictor: warm-up, N_REQUESTS requests of
+    BATCH sequences with exact launch counts, then one profiled request.
     Returns the launches of the timed requests."""
     from recurrent_flows_tpu_torch import ops
     from recurrent_flows_tpu_torch.serving import Predictor
-    from recurrent_flows_tpu_torch.utils import NoiseSource
 
-    pred = Predictor(model, tcfg, n_conditions=N_COND, n_predictions=N_PRED, seed=0)
+    img, ch = mcfg.image_size, mcfg.x_channels
+    pred = Predictor(model, tcfg, n_conditions=n_cond, n_predictions=N_PRED, seed=0)
     t0 = time.perf_counter()
     pred.warmup(batch_size=BATCH)
     torch.cuda.synchronize()
-    print(f"warmup: {time.perf_counter() - t0:.2f} s")
-    want = dict(actnorm_invconv=0, convlstm_gates=N_COND - 1 + N_PRED,
-                coupling_transform=mcfg.K * N_PRED,
-                glowchain=(mcfg.L - 1) * N_PRED, glowstep=0)
+    print(f"{label} warmup: {time.perf_counter() - t0:.2f} s")
     request_ms = []
     ops.reset_launch_counts()
     for i in range(N_REQUESTS):
-        ctx = moving_squares(rng, BATCH, N_COND, mcfg.image_size)
+        ctx = moving_squares(rng, BATCH, n_cond, img, ch)
         before = ops.launch_counts()
         t0 = time.perf_counter()
         out = pred.predict(ctx)
@@ -713,38 +937,48 @@ def serve(model, mcfg, tcfg, rng, record, card):
         request_ms.append((time.perf_counter() - t0) * 1e3)
         counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
         if counts != want:
-            raise AssertionError(f"request {i}: launches {counts}, expected {want}")
-        if out.shape != (BATCH, N_PRED, mcfg.image_size, mcfg.image_size, 1):
-            raise AssertionError(f"request {i}: output shape {out.shape}")
+            raise AssertionError(f"{label} {i}: launches {counts}, expected {want}")
+        if out.shape != (BATCH, N_PRED, img, img, ch):
+            raise AssertionError(f"{label} {i}: output shape {out.shape}")
         if not np.isfinite(out).all() or out.min() < 0.0 or out.max() > 1.0:
-            raise AssertionError(f"request {i}: output not finite in [0, 1]")
-        print(f"request {i}: {request_ms[-1]:.1f} ms, launches {counts}, "
+            raise AssertionError(f"{label} {i}: output not finite in [0, 1]")
+        print(f"{label} {i}: {request_ms[-1]:.1f} ms, launches {counts}, "
               f"mean {out.mean():.4f}, std {out.std():.4f}")
     launches = ops.launch_counts()
     med = statistics.median(request_ms)
-    print(f"predict: median {med:.1f} ms per request of {BATCH} sequences "
-          f"({N_COND} context, {N_PRED} predicted frames) on {card}")
+    print(f"{label}: median {med:.1f} ms per request of {BATCH} sequences "
+          f"({n_cond} context, {N_PRED} predicted frames) on {card}")
     record.update(request_ms=request_ms, median_request_ms=med,
                   launches_per_request=want)
     prof = profile_call(lambda: pred.predict(ctx), med)
     record["profile"] = prof
-    print_profile("request", prof)
+    print_profile(label, prof)
+    return launches
 
-    # phase 5: card against CPU, same weights and noise, B=2, 3 context, 2 predicted
-    x = torch.tensor(moving_squares(rng, 2, 3, mcfg.image_size) - 0.5)
+
+def rollout_card_vs_cpu(model, rng, record, relative=False):
+    """The rollout on the card against the CPU, same weights and noise: B=2,
+    3 context, 2 predicted frames; max |err| per frame within the absolute
+    tolerances, or with ``relative`` within the relative ones times
+    1 + max|x|."""
+    from recurrent_flows_tpu_torch.utils import NoiseSource
+
+    cfg = model.cfg
+    x = torch.tensor(moving_squares(rng, 2, 3, cfg.image_size, cfg.x_channels) - 0.5)
     cpu_model = copy.deepcopy(model).cpu()
     rec = RecordedNoise(NoiseSource(generator=torch.Generator().manual_seed(3)))
     _, p_cpu = cpu_model.predict(x, 2, 3, rec)
     _, p_gpu = model.predict(x.cuda(), 2, 3, NoiseSource(replay=rec.draws))
     p_gpu = p_gpu.cpu()
     errs = [(p_gpu[t] - p_cpu[t]).abs().max().item() for t in range(2)]
-    print(f"card vs CPU rollout: max |err| per predicted frame {errs}, "
-          f"max |x| {p_cpu.abs().max().item():.3f}")
+    scale = 1.0 + p_cpu.abs().max().item()
+    tols = ((TOL_FIRST_FRAME_REL * scale, TOL_LATER_FRAMES_REL * scale) if relative
+            else (TOL_FIRST_FRAME, TOL_LATER_FRAMES))
+    print(f"card vs CPU rollout: max |err| per predicted frame {errs} (limits {tols}), "
+          f"max |x| {scale - 1:.3f}")
     record["card_vs_cpu_err"] = errs
-    if not (torch.isfinite(p_gpu).all() and errs[0] <= TOL_FIRST_FRAME
-            and errs[1] <= TOL_LATER_FRAMES):
+    if not (torch.isfinite(p_gpu).all() and errs[0] <= tols[0] and errs[1] <= tols[1]):
         raise AssertionError(f"card and CPU rollouts disagree: {errs}")
-    return launches
 
 
 def print_profile(what, prof):
@@ -757,34 +991,41 @@ def print_profile(what, prof):
           f"by kind: {kinds}")
 
 
-def train_launches(mcfg, config: str, remat: bool) -> dict:
-    """Launches of one train step of TRAIN_FRAMES frames. The h-LSTM runs
-    once per input frame. Each of the T-1 per-frame steps runs L·K GlowSteps;
+def train_launches(mcfg, config: str, remat: bool, frames: int, kernel_scales,
+                   folded: bool = True) -> dict:
+    """Launches of one train step over ``frames`` + 1 frames. The h-LSTM runs
+    once per input frame. Each of the per-frame steps runs L·K GlowSteps;
     with recomputation its forward runs twice (once in the forward pass,
-    once replayed in the backward), so the flow's forward launches double."""
-    frames = TRAIN_FRAMES - 1
+    once replayed in the backward), so the flow's forward launches double.
+    ``kernel_scales`` are the scales configurations B and C send to their
+    kernel; ``folded`` is False where the step norm is a BatchNormFlow (no
+    folded 1x1)."""
     passes = 2 if remat else 1
-    fused_scales = mcfg.L - 1  # scales 1-4 have H·W <= 256; scale 0 (32x32) never
-    module_steps = mcfg.K * (mcfg.L if config == "A" else 1)
+    n_kernel = len(kernel_scales) if config in ("B", "C") else 0
+    module_steps = mcfg.K * (mcfg.L - n_kernel)
     return dict(
-        actnorm_invconv=frames * passes * module_steps,
+        actnorm_invconv=frames * passes * module_steps if folded else 0,
         convlstm_gates=frames,
         coupling_transform=frames * passes * module_steps,
-        glowchain=frames * passes * fused_scales if config == "C" else 0,
-        glowstep=frames * passes * fused_scales * mcfg.K if config == "B" else 0)
+        glowchain=frames * passes * n_kernel if config == "C" else 0,
+        glowstep=frames * passes * n_kernel * mcfg.K if config == "B" else 0)
 
 
-def train(mcfg, tcfg, rng, record, card):
-    """Phase 6: Trainer.build and train steps of configurations A, B, C.
-    Returns the summed launches of the counted steps."""
+def train(mcfg, tcfg, rng, record, card, kernel_scales, steps_a=TRAIN_STEPS_A,
+          label="train"):
+    """Trainer.build and train steps of configurations A (``steps_a`` of
+    them, then one without recomputation for the peak memory, and one
+    profiled), B and C (one each), with exact launch counts. Returns the
+    summed launches of the counted steps."""
     from recurrent_flows_tpu_torch import ops
+    from recurrent_flows_tpu_torch.flows.glow import kernel_fits
     from recurrent_flows_tpu_torch.models import RFN
     from recurrent_flows_tpu_torch.training import Trainer
 
     configs = dict(A=mcfg, B=with_glow(mcfg, coupling_impl="fused"),
                    C=with_glow(mcfg, chain_impl="all"))
-    batches = [moving_squares(rng, TRAIN_BATCH, TRAIN_FRAMES, mcfg.image_size)
-               for _ in range(TRAIN_STEPS_A)]
+    batches = [moving_squares(rng, tcfg.batch_size, tcfg.n_frames, mcfg.image_size,
+                              mcfg.x_channels) for _ in range(steps_a)]
     total = dict.fromkeys(ops.launch_counts(), 0)
     record["train"] = {}
     for name, cfg in configs.items():
@@ -793,12 +1034,19 @@ def train(mcfg, tcfg, rng, record, card):
         t0 = time.perf_counter()
         trainer = Trainer(model, tcfg, batches).build()
         torch.cuda.synchronize()
-        print(f"train {name}: build with data-dependent init {time.perf_counter() - t0:.2f} s")
+        print(f"{label} {name}: build with data-dependent init {time.perf_counter() - t0:.2f} s")
         steps = []
+        if name != "A":
+            eligible = {l for l, (hw, c, cc) in enumerate(model.flow.scale_shapes)
+                        if kernel_fits(cfg.glow, tcfg.batch_size, hw, hw, c, cc)}
+            if eligible != set(kernel_scales):
+                raise AssertionError(f"{label} {name}: the gates send scales "
+                                     f"{sorted(eligible)} to the kernel, expected "
+                                     f"{sorted(kernel_scales)}")
 
         def one_step(batch, remat=True, count=True):
             model.remat = remat
-            want = train_launches(mcfg, name, remat)
+            want = train_launches(mcfg, name, remat, tcfg.n_frames - 1, kernel_scales)
             ops.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -808,42 +1056,44 @@ def train(mcfg, tcfg, rng, record, card):
             ms = (time.perf_counter() - t0) * 1e3
             counts = ops.launch_counts()
             if counts != want:
-                raise AssertionError(f"train {name}: launches {counts}, expected {want}")
+                raise AssertionError(f"{label} {name}: launches {counts}, expected {want}")
             if not all(np.isfinite(v) for v in m.values()):
-                raise AssertionError(f"train {name}: metrics not finite: {m}")
+                raise AssertionError(f"{label} {name}: metrics not finite: {m}")
             if count:
                 for k, v in counts.items():
                     total[k] += v
             gib = torch.cuda.max_memory_allocated() / 2**30
             steps.append(dict(remat=remat, ms=ms, peak_gib=gib, launches=counts, **m))
-            print(f"train {name} step {len(steps) - 1} (remat={remat}): {ms:.1f} ms, "
+            print(f"{label} {name} step {len(steps) - 1} (remat={remat}): {ms:.1f} ms, "
                   f"peak {gib:.2f} GiB, loss {m['loss']:.1f} = nll {m['nll']:.1f} + "
                   f"beta·kl (kl {m['kl']:.2f}), {m['bits']:.4f} bits/dim, launches {counts}")
 
-        for batch in batches[:TRAIN_STEPS_A if name == "A" else 1]:
+        for batch in batches[:steps_a if name == "A" else 1]:
             one_step(batch)
         if name == "A":
             one_step(batches[0], remat=False, count=False)
             model.remat = True
-            med = statistics.median(s["ms"] for s in steps[1:TRAIN_STEPS_A])
+            med = statistics.median(s["ms"] for s in steps[1:steps_a])
             prof = profile_call(lambda: trainer.train_step(
                 batches[1], beta=tcfg.beta_min, lr=tcfg.learning_rate), med)
             record["train_profile"] = prof
-            print_profile("train step A", prof)
+            print_profile(f"{label} step A", prof)
         record["train"][name] = steps
         del trainer, model
         torch.cuda.empty_cache()
-    print(f"train: {TRAIN_BATCH} sequences of {TRAIN_FRAMES} frames per step on {card}")
+    print(f"{label}: {tcfg.batch_size} sequences of {tcfg.n_frames} frames per step on {card}")
     return total
 
 
-def train_card_vs_cpu(mcfg, tcfg, rng, record):
-    """Phase 7: one train step's loss and gradients, card against CPU."""
+def train_card_vs_cpu(mcfg, tcfg, rng, record, direct, stream, batch_size=2):
+    """One train step's loss and the ``direct`` and ``stream`` named
+    gradients (see the tolerances), card against CPU: B=2 (or
+    ``batch_size``), 3 frames."""
     from recurrent_flows_tpu_torch.models import RFN
     from recurrent_flows_tpu_torch.training import Trainer
     from recurrent_flows_tpu_torch.utils import NoiseSource, float32_precision
 
-    batch = moving_squares(rng, 2, 3, mcfg.image_size)
+    batch = moving_squares(rng, batch_size, 3, mcfg.image_size, mcfg.x_channels)
     gpu = RFN(mcfg, device="cuda", generator=torch.Generator().manual_seed(0))
     perturb_(gpu, seed=1)
     Trainer(gpu, tcfg, [batch]).build()  # actnorms from data, on the card
@@ -864,13 +1114,6 @@ def train_card_vs_cpu(mcfg, tcfg, rng, record):
     for k, ref in l_cpu.items():
         if not abs(l_gpu[k] - ref) <= TOL_STEP_LOSS * (1 + abs(ref)):
             raise AssertionError(f"train step {k}: card {l_gpu[k]}, CPU {ref}")
-    direct = ["flow.scale0_step9.affine.net2.conv.kernel",
-              "flow.scale4_step0.affine.net0.conv.kernel",
-              "flow.scale4_step9.affine.scale", "flow.split1.conv.conv.kernel",
-              "flow.prior_out.conv.kernel", "prior.param_conv.kernel"]
-    stream = ["flow.scale0_step0.invconv.lower", "flow.scale2_step5.norm.logs",
-              "lstm.gates.kernel", "lstm.Wci", "extractor.b0_1.kernel",
-              "upscaler.b4_2.kernel", "encoder.param_conv.kernel", "z_0x"]
     tols = {**dict.fromkeys(direct, TOL_STEP_GRAD_DIRECT),
             **dict.fromkeys(stream, TOL_STEP_GRAD_STREAM)}
     scales = {n: g_cpu[n].abs().max().item() for n in tols}
@@ -882,6 +1125,164 @@ def train_card_vs_cpu(mcfg, tcfg, rng, record):
     bad = {n: e for n, e in errs.items() if not (scales[n] > 0 and e <= tols[n])}
     if bad:
         raise AssertionError(f"train step gradients disagree: {bad}")
+    return gpu
+
+
+# the named gradients of the card-vs-CPU train step: parameters with a direct
+# term in the objective, and parameters reached only through the flow's stream
+MNIST_GRADS = (
+    ["flow.scale0_step9.affine.net2.conv.kernel", "flow.scale4_step0.affine.net0.conv.kernel",
+     "flow.scale4_step9.affine.scale", "flow.split1.conv.conv.kernel",
+     "flow.prior_out.conv.kernel", "prior.param_conv.kernel"],
+    ["flow.scale0_step0.invconv.lower", "flow.scale2_step5.norm.logs",
+     "lstm.gates.kernel", "lstm.Wci", "extractor.b0_1.kernel",
+     "upscaler.b4_2.kernel", "encoder.param_conv.kernel", "z_0x"])
+# At rfn_bair the first step of the last scale is a stream parameter: its
+# gradient passes the scale's 9 later steps, and on random weights the last
+# scale's values reach ~1e3; its card-vs-CPU error was 3.2e-3 of its largest
+# entry in this script's runs, where rfn_mnist_production's scale4_step0
+# gives 1.8e-5, and the plain versions on the card differ from the CPU
+# alike (scripts/torch_conditioning.py --card). The last step of the last
+# scale feeds only the base prior.
+BAIR_GRADS = (
+    ["flow.scale0_step9.affine.net2.conv.kernel", "flow.scale3_step9.affine.net0.conv.kernel",
+     "flow.scale3_step9.affine.scale", "flow.split1.conv.conv.kernel",
+     "flow.prior_out.conv.kernel", "prior.param_conv.kernel"],
+    ["flow.scale0_step0.invconv.lower", "flow.scale2_step5.norm.logs",
+     "flow.scale3_step0.affine.net0.conv.kernel",
+     "lstm.gates.kernel", "lstm.Wci", "extractor.b0_1.kernel",
+     "upscaler.b3_2.kernel", "encoder.param_conv.kernel", "z_0x"])
+BN_GRADS = (
+    ["flow.scale0_step9.affine.net2.conv.kernel", "flow.scale3_step9.affine.net0.conv.kernel",
+     "flow.scale3_step9.affine.scale", "flow.split1.conv.conv.kernel",
+     "flow.prior_out.conv.kernel", "prior.param_conv.kernel"],
+    ["flow.scale0_step0.invconv.weight", "flow.scale2_step5.norm.log_gamma",
+     "flow.scale3_step0.affine.net0.conv.kernel",
+     "lstm.gates.kernel", "lstm.Wci", "extractor.b0_1.kernel",
+     "upscaler.b3_2.kernel", "encoder.param_conv.kernel", "z_0x"])
+
+
+# The batch-norm variant's train step is held card against CPU at B=8, not
+# 2: a BatchNormFlow normalises each position over the batch, and over 2
+# samples a position where both agree (the squares overlap) has a variance
+# near eps, so the loss and its gradients are ill-conditioned in float32.
+# scripts/torch_conditioning.py measures it: at a reduced width on the CPU,
+# float32 against float64 gradients differ by a median 8.5e-4 of the
+# largest entry at B=2, 1.4e-4 at B=4 and 2e-6 at B=8; with --card, at
+# full width and B=2, the card's gradients differ from the CPU's by up to
+# 14 times their largest entries through the kernels and 52 times through
+# the plain versions.
+BN_CARD_VS_CPU_BATCH = 8
+
+
+def bair(rng, record, card):
+    """rfn_bair at full width: serving (chain_impl='sample') and training in
+    configurations A, B, C, then card against CPU. Returns
+    {path: launches}."""
+    from recurrent_flows_tpu_torch.config import rfn_bair
+    from recurrent_flows_tpu_torch.models import RFN
+    from recurrent_flows_tpu_torch.training import Trainer
+
+    mcfg, tcfg = rfn_bair()
+    model = RFN(with_glow(mcfg, chain_impl="sample"), device="cuda",
+                generator=torch.Generator().manual_seed(0))
+    perturb_(model, seed=1)
+    print(f"model: rfn_bair, {sum(p.numel() for p in model.parameters())} parameters")
+    t0 = time.perf_counter()
+    Trainer(model, tcfg, [moving_squares(rng, tcfg.batch_size, 2, mcfg.image_size, 3)]).build()
+    torch.cuda.synchronize()
+    print(f"bair: build with data-dependent init {time.perf_counter() - t0:.2f} s")
+    chain = sorted(model.flow.prepare_chain(BATCH))
+    if chain != BAIR_KERNEL_SCALES:
+        raise AssertionError(f"bair: chain scales {chain}, expected {BAIR_KERNEL_SCALES}")
+    record["serve"] = {}
+    launches = {"bair_serve": serve(
+        model, mcfg, tcfg, rng, record["serve"], card,
+        request_launches(mcfg, BAIR_KERNEL_SCALES, BAIR_N_COND), BAIR_N_COND,
+        label="bair request")}
+    rollout_card_vs_cpu(model, rng, record["serve"], relative=True)
+    del model
+    torch.cuda.empty_cache()
+    launches["bair_train"] = train(mcfg, tcfg, rng, record, card, BAIR_KERNEL_SCALES,
+                                   label="bair train")
+    train_card_vs_cpu(mcfg, tcfg, rng, record, *BAIR_GRADS)
+    return launches
+
+
+def kth_batchnorm(rng, record, card):
+    """The batch-norm variant of rfn_kth at full width: build, 2 train steps
+    that move no running buffer, refresh_stats that moves them, a request
+    with eval_norm, then the train step and the rollout card against CPU.
+    Returns {path: launches}."""
+    from recurrent_flows_tpu_torch import ops
+    from recurrent_flows_tpu_torch.config import rfn_kth
+    from recurrent_flows_tpu_torch.models import RFN
+    from recurrent_flows_tpu_torch.training import Trainer
+
+    mcfg, tcfg = rfn_kth()
+    mcfg = dataclasses.replace(with_glow(mcfg, flow_norm="batchnorm", base_norm="batchnorm",
+                                         lu_decomposed=False), track_running_stats=True)
+    model = RFN(mcfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    perturb_(model, seed=1)
+    batches = [moving_squares(rng, tcfg.batch_size, tcfg.n_frames, mcfg.image_size)
+               for _ in range(3)]
+    t0 = time.perf_counter()
+    trainer = Trainer(model, tcfg, batches).build()
+    torch.cuda.synchronize()
+    print(f"kth batchnorm: build (init pass + data-dependent init) "
+          f"{time.perf_counter() - t0:.2f} s")
+    buffers = lambda: {n: b.clone() for n, b in model.named_buffers()}
+    start = buffers()
+    if not start or any(torch.equal(start[n], torch.ones_like(start[n]))
+                        for n in start if n.startswith("flow.") and "running_var" in n):
+        raise AssertionError("kth batchnorm: build left a flow running variance at 1")
+    want = train_launches(mcfg, "A", True, tcfg.n_frames - 1, (), folded=False)
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    steps = []
+    for batch in batches[:2]:
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in trainer.train_step(
+            batch, beta=tcfg.beta_min, lr=tcfg.learning_rate).items()}
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        if counts != want:
+            raise AssertionError(f"kth batchnorm train: launches {counts}, expected {want}")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"kth batchnorm train: metrics not finite: {m}")
+        for k, v in counts.items():
+            total[k] += v
+        gib = torch.cuda.max_memory_allocated() / 2**30
+        steps.append(dict(ms=ms, peak_gib=gib, launches=counts, **m))
+        print(f"kth batchnorm train step {len(steps) - 1}: {ms:.1f} ms, peak {gib:.2f} GiB, "
+              f"loss {m['loss']:.1f}, launches {counts}")
+    moved = [n for n, b in model.named_buffers() if not torch.equal(b, start[n])]
+    if moved:
+        raise AssertionError(f"kth batchnorm: train steps moved running buffers {moved[:5]}")
+    trainer.refresh_stats()
+    torch.cuda.synchronize()
+    after = buffers()
+    moved = {n for n in after if not torch.equal(after[n], start[n])}
+    for prefix in ("flow.", "extractor.", "upscaler."):
+        if not any(n.startswith(prefix) for n in moved):
+            raise AssertionError(f"kth batchnorm: refresh_stats moved no {prefix} buffer")
+    print(f"kth batchnorm: train steps moved no running buffer; refresh_stats moved "
+          f"{len(moved)} of {len(after)}")
+    record["train"] = steps
+    record["refresh_moved"] = len(moved)
+    model.eval_norm = True
+    record["serve"] = {}
+    launches = {"kth_bn_train": total, "kth_bn_serve": serve(
+        model, mcfg, tcfg, rng, record["serve"], card,
+        request_launches(mcfg, (), BAIR_N_COND), BAIR_N_COND,
+        label="kth batchnorm request (eval_norm)")}
+    rollout_card_vs_cpu(model, rng, record["serve"], relative=True)
+    del trainer, model
+    torch.cuda.empty_cache()
+    train_card_vs_cpu(mcfg, tcfg, rng, record, *BN_GRADS, batch_size=BN_CARD_VS_CPU_BATCH)
+    return launches
 
 
 SOURCES = {
@@ -938,21 +1339,42 @@ def main() -> None:
     print(f"phase 3 done at {time.perf_counter() - t_start:.0f} s")
 
     rng = np.random.default_rng(0)
-    launches = serve(model, mcfg, tcfg, rng, record, card)
+    paths = {"mnist_serve": serve(model, mcfg, tcfg, rng, record, card,
+                                  request_launches(mcfg, range(1, mcfg.L), N_COND), N_COND)}
+    rollout_card_vs_cpu(model, rng, record)
     del model
     torch.cuda.empty_cache()
     print(f"serving done at {time.perf_counter() - t_start:.0f} s")
-    for name, n in train(mcfg, tcfg, rng, record, card).items():
-        launches[name] += n
+    paths["mnist_train"] = train(mcfg, tcfg, rng, record, card, range(1, mcfg.L))
     print(f"training done at {time.perf_counter() - t_start:.0f} s")
-    train_card_vs_cpu(mcfg, tcfg, rng, record)
+    train_card_vs_cpu(mcfg, tcfg, rng, record, *MNIST_GRADS)
 
+    # the kernels at the shapes of rfn_bair and rfn_kth, then both models
+    record["new_shapes"] = {}
+    with float32_precision():
+        new = check_new_shapes(record["new_shapes"])
+    print(f"new shapes done at {time.perf_counter() - t_start:.0f} s")
+    record["bair"] = {}
+    paths.update(bair(rng, record["bair"], card))
+    print(f"rfn_bair done at {time.perf_counter() - t_start:.0f} s")
+    record["kth_batchnorm"] = {}
+    paths.update(kth_batchnorm(rng, record["kth_batchnorm"], card))
+    print(f"rfn_kth batchnorm variant done at {time.perf_counter() - t_start:.0f} s")
+
+    launches = {name: sum(p[name] for p in paths.values()) for name in SOURCES}
     never = [name for name in SOURCES if launches[name] == 0]
-    if never:
-        raise AssertionError(f"kernels the main paths never launched: {never}")
+    on_bair = [name for name in SOURCES
+               if paths["bair_serve"][name] + paths["bair_train"][name] == 0]
+    if never or on_bair:
+        raise AssertionError(f"kernels the main paths never launched: {never}; "
+                             f"that rfn_bair never launched: {on_bair}")
     line = {"kernels": [
         dict(name=name, route=route, source=source, replaces=replaces,
-             launches=launches[name], **kernels[name])
+             launches=launches[name],
+             launches_by_path={path: p[name] for path, p in paths.items()},
+             **{**kernels[name],
+                "max_abs_err": max(kernels[name]["max_abs_err"], new[name]["max_abs_err"])},
+             bair_kth_shapes=new[name])
         for name, (route, source, replaces) in SOURCES.items()],
         "launch_floor_ms": record["launch_floor_ms"]}
     record.update(line, total_s=time.perf_counter() - t_start)

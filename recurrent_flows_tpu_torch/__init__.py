@@ -6,7 +6,8 @@ its NHWC layout at every public function. Importing this package imports
 context and builds no kernel. Kernels are built on first launch.
 """
 
-from .config import GlowConfig, RFNConfig, TrainConfig, check_supported, rfn_mnist_production
+from .config import (GlowConfig, RFNConfig, TrainConfig, check_supported, rfn_bair,
+                     rfn_kth, rfn_mnist_production)
 
-__all__ = ["GlowConfig", "RFNConfig", "TrainConfig", "check_supported",
+__all__ = ["GlowConfig", "RFNConfig", "TrainConfig", "check_supported", "rfn_bair", "rfn_kth",
            "rfn_mnist_production"]

@@ -6,7 +6,8 @@ written for one package reads the same in the other
 
 ``check_supported`` refuses, at construction, every configuration the port
 cannot run as the JAX package would: TPU-only knobs raise ``ValueError``,
-paths not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+paths not ported yet (the VGG ops 'deconv' and 'squeeze') raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Any, Tuple
 
 __all__ = ["GlowConfig", "RFNConfig", "TrainConfig", "check_supported",
            "check_glow_supported", "config_from_dict", "parse_block",
-           "parse_structure", "rfn_mnist_production"]
+           "parse_structure", "rfn_bair", "rfn_kth", "rfn_mnist_production"]
 
 Block = Tuple[Any, ...]  # ints and keyword strings ('pool', 'conv', 'upsample', ...)
 
@@ -68,8 +69,8 @@ class GlowConfig:
     n_units_prior: int = 512
     non_lin: str = "relu"  # {relu, leakyrelu}
     make_conditional: bool = True
-    flow_norm: str = "actnorm"  # {actnorm, batchnorm}
-    base_norm: str = "actnorm"
+    flow_norm: str = "actnorm"  # {actnorm, batchnorm}: the GlowStep norm
+    base_norm: str = "actnorm"  # {actnorm, batchnorm, none}: the base prior's convs
     batchnorm_momentum: float = 0.0
     clamp_type: str = "realnvp"  # {glow, realnvp, softclamp, none}
     split2d_act: str = "softplus"  # {softplus, exp}
@@ -78,7 +79,7 @@ class GlowConfig:
     # 'fused' = the whole-step glowstep kernel where H·W <= 256
     coupling_impl: str = "auto"
     coupling_dtype: str | None = None  # TPU-only, refused
-    coupling_norm: str = "actnorm"
+    coupling_norm: str = "actnorm"  # {actnorm, batchnorm, none}: the coupling nets' convs
     fold_weights: bool = True  # False is a TPU A/B switch, refused
     packed_layout: object = False  # TPU-only, refused
     # the K steps of a scale with H·W <= 256 in one glowchain launch:
@@ -214,6 +215,44 @@ def rfn_mnist_production():
     return model, train
 
 
+def rfn_kth():
+    """64x64 grayscale KTH RFN at thesis scale (job-script geometry, L=4)."""
+    model = RFNConfig(
+        x_channels=1, image_size=64, h_dim=256, z_dim=32, a_dim=200, L=4, K=10,
+        extractor_structure=(
+            (32, "pool", 64),
+            (64, "pool", 128),
+            (128, "pool", 256),
+            (256, "pool", 256),
+        ),
+        upscaler_structure=(
+            (256, 128),
+            ("upsample", 128, 128),
+            ("upsample", 64, 64),
+            ("upsample", 32, 32),
+        ),
+        prior_structure=(256, 64),
+        encoder_structure=(256, 64),
+        norm_type="none",
+        norm_type_features="batchnorm",
+        glow=GlowConfig(L=4, K=10, n_units_affine=256, n_units_prior=512),
+    )
+    train = TrainConfig(batch_size=32, n_frames=10, choose_data="kth",
+                        learning_rate=1e-4, beta_steps=12_000)
+    return model, train
+
+
+def rfn_bair():
+    """64x64 RGB BAIR RFN: the KTH model with 3 input channels, 12 frames."""
+    model, train = rfn_kth()
+    return (dataclasses.replace(model, x_channels=3),
+            dataclasses.replace(train, choose_data="bair", n_frames=12))
+
+
+FLOW_NORMS = ("actnorm", "batchnorm")  # the GlowStep norm (JAX GlowStep)
+CONV_NORMS = ("actnorm", "batchnorm", "none")  # Conv2dNorm's norm
+
+
 def check_glow_supported(g: GlowConfig) -> None:
     """Raise on a GlowConfig the port does not run."""
     if g.packed_layout:
@@ -231,17 +270,12 @@ def check_glow_supported(g: GlowConfig) -> None:
         raise ValueError(f"unknown coupling_impl {g.coupling_impl!r}")
     if g.chain_impl not in ("off", "sample", "all"):
         raise ValueError(f"unknown chain_impl {g.chain_impl!r}")
-    if g.flow_norm != "actnorm":
-        raise NotImplementedError(
-            f"flow_norm={g.flow_norm!r}: BatchNormFlow is not ported yet "
-            "(ROADMAP.md queue 1, item 1)")
-    if g.coupling_norm != "actnorm" or g.base_norm != "actnorm":
-        raise NotImplementedError(
-            "coupling_norm/base_norm other than 'actnorm' are not ported yet "
-            "(ROADMAP.md queue 1, item 1)")
-    if not g.lu_decomposed:
-        raise NotImplementedError(
-            "lu_decomposed=False is not ported yet (ROADMAP.md queue 1, item 1)")
+    if g.flow_norm not in FLOW_NORMS:
+        raise ValueError(f"unknown flow_norm {g.flow_norm!r}; one of {FLOW_NORMS}")
+    for name in ("coupling_norm", "base_norm"):
+        if getattr(g, name) not in CONV_NORMS:
+            raise ValueError(f"unknown {name} {getattr(g, name)!r}; one of "
+                             f"{CONV_NORMS}")
     if g.clamp_type not in ("glow", "softclamp", "realnvp", "none"):
         raise ValueError(f"unknown clamp type {g.clamp_type!r}")
     if g.split2d_act not in ("softplus", "exp"):
@@ -251,10 +285,6 @@ def check_glow_supported(g: GlowConfig) -> None:
 def check_supported(cfg: RFNConfig) -> None:
     """Raise on an RFNConfig the port does not run (see module docstring)."""
     check_glow_supported(cfg.glow)
-    if cfg.track_running_stats:
-        raise NotImplementedError(
-            "track_running_stats (eval-mode batchnorm) is not ported yet "
-            "(ROADMAP.md queue 1, item 2)")
     for block in cfg.extractor_structure + cfg.upscaler_structure:
         for op in block:
             if op in ("deconv", "squeeze"):

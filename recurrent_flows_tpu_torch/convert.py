@@ -3,10 +3,15 @@
 The port's modules carry the flax names, so a leaf's path in the flax
 tree, joined by '.', is its name in the port's ``state_dict``. Conv
 kernels go from HWIO to OIHW; every other leaf (actnorm ``bias``/``logs``,
-the LU ``lower``/``upper``/``log_s``, ``Conv2dZeros`` ``logs``, the realnvp
-``scale``/``scale_shift``, the peepholes ``Wci``/``Wcf``/``Wco`` [1,H,W,C],
-``NormLayer`` ``scale``/``bias``, ``h_0`` … ``z_0x`` [1,h,w,C]) keeps its
-layout. The 'consts' tree (the LU's ``p`` and ``sign_s``) maps onto buffers.
+the LU ``lower``/``upper``/``log_s`` or the plain 1x1 ``weight``,
+``BatchNormFlow`` ``log_gamma``/``beta`` [H,W,C], ``Conv2dZeros`` ``logs``,
+a ``Conv2dNorm``'s conv ``bias`` and ``bn_scale``/``bn_bias`` where its norm
+is not actnorm, the realnvp ``scale``/``scale_shift``, the peepholes
+``Wci``/``Wcf``/``Wco`` [1,H,W,C], ``NormLayer`` ``scale``/``bias``,
+``h_0`` … ``z_0x`` [1,h,w,C]) keeps its layout. The 'consts' tree (the
+LU's ``p`` and ``sign_s``; absent without LU) and the 'batch_stats' tree
+(the ``running_mean``/``running_var`` of the BatchNormFlows [H,W,C] and of
+the NormLayers that track them [C]) map onto buffers.
 
 The layout changes are linear, so a tree of gradients or of Adam moments
 shaped like the parameters converts the same way (``tree_from_flax``);
@@ -51,13 +56,16 @@ def _convert(coll: str, tree: Mapping, expected: Mapping, kind: str) -> dict:
 
 
 def from_flax(params: Mapping, consts: Mapping | None,
-              model: nn.Module) -> dict:
-    """State dict for ``model`` from flax ``params``/``consts`` trees
-    (nested dicts of arrays). Raises on a leaf the port does not consume,
-    on a port parameter or buffer left unset, and on a shape mismatch."""
+              model: nn.Module, batch_stats: Mapping | None = None) -> dict:
+    """State dict for ``model`` from flax ``params``/``consts``/
+    ``batch_stats`` trees (nested dicts of arrays). Raises on a leaf the
+    port does not consume, on a port parameter or buffer left unset, and on
+    a shape mismatch."""
     kind = type(model).__name__
+    buffers = dict(model.named_buffers())
     state = _convert("params", params, dict(model.named_parameters()), kind)
-    state.update(_convert("consts", consts or {}, dict(model.named_buffers()), kind))
+    state.update(_convert("consts", consts or {}, buffers, kind))
+    state.update(_convert("batch_stats", batch_stats or {}, buffers, kind))
     missing = sorted(set(model.state_dict()) - set(state))
     if missing:
         raise KeyError(f"port parameters not set by the flax trees: {missing}")

@@ -8,6 +8,13 @@ into the parameters afterwards. PyTorch runs eagerly and may update in
 place, so here the same pass sets each ActNorm's ``bias``/``logs`` as it
 goes, under ``torch.no_grad()``: one sweep, in the same order, with the
 same values downstream.
+
+Only ActNorms are initialised, and every one runs unfolded here. With
+``flow_norm='batchnorm'`` the step norm is a BatchNormFlow, which
+normalises with the batch's statistics and is left as it is; the coupling
+nets' and the base prior's ``Conv2dNorm`` keep their ActNorms only where
+``coupling_norm``/``base_norm`` is 'actnorm'. The Split2d condition nets
+always have theirs.
 """
 
 from __future__ import annotations

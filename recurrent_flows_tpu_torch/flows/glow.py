@@ -8,14 +8,24 @@ A scale's K GlowSteps run one of three ways, the same in both directions:
   plain product in reverse), three cuDNN convs and the
   ``coupling_transform`` kernel;
 * ``GlowConfig.coupling_impl == 'fused'``: one ``glowstep`` launch per
-  GlowStep where H·W <= 256;
+  GlowStep;
 * ``GlowConfig.chain_impl`` 'all' (both directions) or 'sample' (reverse
-  only): one ``glowchain`` launch per scale where H·W <= 256.
+  only): one ``glowchain`` launch per scale.
+
+The two kernels take a scale only where :func:`kernel_fits`: the step is
+the one they compute (relu, actnorm step norm and coupling norm, LU 1x1;
+the JAX gates' conditions, and the coupling norm because the kernels'
+parameters fold its actnorm), H·W <= 256, and the launch plan has room for
+the shape (``ops.glowstep.plan_exists``). Any other scale takes the module
+path, decided from shapes and configuration before any launch, as the JAX
+gates send their kernel's misfits there.
 
 The kernels return only the coupling's Σ s; the actnorm and 1x1 terms of
 the log-determinant are ``static_ld_px·H·W``, added here from the
 parameters, so their gradients reach ``logs`` and ``log_s`` by autograd.
 The data-dependent-init pass (``ddi=True``) always takes the module path.
+With ``flow_norm='batchnorm'`` the step norm is a ``BatchNormFlow``:
+``training`` (forward) picks the batch's statistics or the running ones.
 """
 
 from __future__ import annotations
@@ -29,12 +39,24 @@ from torch import nn
 from ..config import GlowConfig, check_glow_supported
 from ..nn.layers import act
 from ..ops.glowchain import glowchain
-from ..ops.glowstep import GlowStepParams, glowstep
+from ..ops.glowstep import GlowStepParams, glowstep, plan_exists
 from ..utils.numerics import (batch_reduce, normal_log_prob, split_feature,
                               squeeze2d, unsqueeze2d)
-from .modules import ActNorm, AffineCoupling, Conv2dNorm, Conv2dZeros, InvConv, Split2d
+from .modules import (ActNorm, AffineCoupling, BatchNormFlow, Conv2dNorm, Conv2dZeros,
+                      InvConv, Split2d)
 
 CHAIN_MAX_HW = 256
+
+
+def kernel_fits(cfg: GlowConfig, b: int, h: int, w: int, c: int, cc: int) -> bool:
+    """The ``glowstep``/``glowchain`` kernels compute the GlowSteps of x
+    [b, h, w, c] with cc condition channels under ``cfg``."""
+    return (cfg.non_lin == "relu"  # the kernels' activation
+            and cfg.flow_norm == "actnorm"
+            and cfg.lu_decomposed
+            and cfg.coupling_norm == "actnorm"
+            and h * w <= CHAIN_MAX_HW
+            and plan_exists(b, h, w, c, cc, cfg.n_units_affine))
 
 
 def prep_glowstep_params(step: "GlowStep", reverse: bool):
@@ -58,7 +80,7 @@ def prep_glowstep_params(step: "GlowStep", reverse: bool):
     params = GlowStepParams(
         an_bias=step.norm.bias,
         an_logs=step.norm.logs,
-        w1x1=step.invconv.weight(reverse).T.contiguous(),
+        w1x1=step.invconv.matrix(reverse).T.contiguous(),
         # OIHW -> HWIO -> [9, Cin, Cout]
         wa=aff.net0.conv.kernel.permute(2, 3, 1, 0).reshape(9, -1, step.hidden).contiguous(),
         ana_bias=aff.net0.actnorm.bias,
@@ -76,24 +98,31 @@ def prep_glowstep_params(step: "GlowStep", reverse: bool):
 
 
 class GlowStep(nn.Module):
-    """norm -> invertible 1x1 conv -> conditional affine coupling."""
+    """norm -> invertible 1x1 conv -> conditional affine coupling. The norm
+    is an ``ActNorm`` (folded into the 1x1 outside DDI) or, with
+    ``flow_norm='batchnorm'``, a ``BatchNormFlow`` over ``spatial_shape``
+    (H, W, C)."""
 
     def __init__(self, channels: int, cond_channels: int, cfg: GlowConfig,
-                 *, device=None, generator=None):
+                 spatial_shape=None, *, device=None, generator=None):
         super().__init__()
         self.channels, self.hidden = channels, cfg.n_units_affine
         self.cfg = cfg
-        self.norm = ActNorm(channels, device=device)
-        self.invconv = InvConv(channels, device=device, generator=generator)
+        if cfg.flow_norm == "batchnorm":
+            self.norm = BatchNormFlow(spatial_shape, cfg.batchnorm_momentum,
+                                      device=device)
+        else:
+            self.norm = ActNorm(channels, device=device)
+        self.invconv = InvConv(channels, cfg.lu_decomposed, device=device,
+                               generator=generator)
         self.affine = AffineCoupling(channels, cond_channels, cfg.n_units_affine,
-                                     cfg.non_lin, cfg.clamp_type,
+                                     cfg.non_lin, cfg.clamp_type, cfg.coupling_norm,
                                      device=device, generator=generator)
 
-    def fused_eligible(self, x) -> bool:
+    def fused_eligible(self, x, condition) -> bool:
         """This step runs through the ``glowstep`` kernel on ``x``."""
         return (self.cfg.coupling_impl == "fused"
-                and self.cfg.non_lin == "relu"  # the kernel's activation
-                and x.shape[1] * x.shape[2] <= CHAIN_MAX_HW)
+                and kernel_fits(self.cfg, *x.shape, condition.shape[-1]))
 
     def _fused(self, x, condition, reverse: bool):
         """(y, this step's whole logdet [B]) through the glowstep kernel."""
@@ -102,11 +131,15 @@ class GlowStep(nn.Module):
                              self.cfg.clamp_type, reverse)
         return y, dyn_ld + static_ld_px * (x.shape[1] * x.shape[2])
 
-    def forward(self, x, condition, logdet=None, ddi: bool = False):
-        if not ddi and self.fused_eligible(x):
+    def forward(self, x, condition, logdet=None, ddi: bool = False,
+                training: bool = True):
+        if not ddi and self.fused_eligible(x, condition):
             y, ld = self._fused(x, condition, False)
             return y, (logdet + ld if logdet is not None else None)
-        if ddi:
+        if self.cfg.flow_norm == "batchnorm":
+            x, logdet = self.norm(x, logdet, training)
+            x, logdet = self.invconv(x, logdet)
+        elif ddi:
             x, logdet = self.norm(x, logdet, ddi=True)
             x, logdet = self.invconv(x, logdet)
         else:
@@ -114,9 +147,11 @@ class GlowStep(nn.Module):
         return self.affine(x, condition, logdet, ddi)
 
     def reverse(self, x, condition):
-        if self.fused_eligible(x):
+        if self.fused_eligible(x, condition):
             return self._fused(x, condition, True)[0]
         x, _ = self.affine.reverse(x, condition)
+        if self.cfg.flow_norm == "batchnorm":
+            return self.norm.reverse(self.invconv.reverse(x))
         return self.invconv.reverse(x, self.norm.bias, self.norm.logs)
 
 
@@ -136,13 +171,14 @@ class ListGlow(nn.Module):
         self.cfg = cfg
         kw = dict(device=device, generator=generator)
         c, hw = in_channels, image_size
-        self.scale_hw = []
+        self.scale_hw, self.scale_shapes = [], []
         for l in range(cfg.L):
             c, hw = c * 4, hw // 2
             self.scale_hw.append(hw)
+            self.scale_shapes.append((hw, c, cond_channels[l]))
             for k in range(cfg.K):
                 self.add_module(f"scale{l}_step{k}",
-                                GlowStep(c, cond_channels[l], cfg, **kw))
+                                GlowStep(c, cond_channels[l], cfg, (hw, hw, c), **kw))
             if l < cfg.L - 1:
                 self.add_module(f"split{l}", Split2d(
                     c, cond_channels[l], cfg.make_conditional,
@@ -151,8 +187,8 @@ class ListGlow(nn.Module):
         self.final_channels, self.final_hw = c, hw
         if cfg.learn_prior:
             up = cfg.n_units_prior
-            self.prior0 = Conv2dNorm(base_channels, up, 3, **kw)
-            self.prior1 = Conv2dNorm(up, up // 2, 3, **kw)
+            self.prior0 = Conv2dNorm(base_channels, up, 3, cfg.base_norm, **kw)
+            self.prior1 = Conv2dNorm(up, up // 2, 3, cfg.base_norm, **kw)
             self.prior_out = Conv2dZeros(up // 2, 2 * c, device=device)
 
     def step(self, l: int, k: int) -> GlowStep:
@@ -172,12 +208,13 @@ class ListGlow(nn.Module):
 
     # -- the glowchain kernel ---------------------------------------------
 
-    def chain_eligible(self, l: int, reverse: bool = True) -> bool:
-        """Scale ``l`` runs through the glowchain kernel in this direction."""
+    def chain_eligible(self, l: int, batch: int, reverse: bool = True) -> bool:
+        """Scale ``l`` runs through the glowchain kernel in this direction
+        on a batch of ``batch``."""
         mode = self.cfg.chain_impl
+        hw, c, cc = self.scale_shapes[l]
         return ((mode == "all" or (mode == "sample" and reverse))
-                and self.cfg.non_lin == "relu"
-                and self.scale_hw[l] ** 2 <= CHAIN_MAX_HW)
+                and kernel_fits(self.cfg, batch, hw, hw, c, cc))
 
     def chain_params(self, l: int, reverse: bool):
         """Scale ``l``'s kernel params stacked [K, ...] in execution order
@@ -190,41 +227,45 @@ class ListGlow(nn.Module):
         return params, sum(s for _, s in preps)
 
     @torch.no_grad()
-    def prepare_chain(self) -> dict:
-        """Stacked reverse-direction kernel params of every chain-eligible
-        scale: {l: GlowStepParams}. Computed once per call of ``g``'s
-        caller, not once per frame."""
+    def prepare_chain(self, batch: int) -> dict:
+        """Stacked reverse-direction kernel params of every scale that is
+        chain-eligible on a batch of ``batch``: {l: GlowStepParams}.
+        Computed once per call of ``g``'s caller, not once per frame."""
         return {l: self.chain_params(l, reverse=True)[0]
-                for l in range(self.cfg.L) if self.chain_eligible(l)}
+                for l in range(self.cfg.L) if self.chain_eligible(l, batch)}
 
     # -- bijection --------------------------------------------------------
 
-    def f(self, x, conditions: Sequence, logdet, ddi: bool = False):
+    def f(self, x, conditions: Sequence, logdet, ddi: bool = False,
+          training: bool = True):
         """x -> z with the log-determinant and the splits' log-likelihoods
         added to ``logdet`` [B]."""
         cfg = self.cfg
         z = x
         for l in range(cfg.L):
             z = squeeze2d(z)
-            if not ddi and self.chain_eligible(l, reverse=False):
+            if not ddi and self.chain_eligible(l, z.shape[0], reverse=False):
                 params, static_ld_px = self.chain_params(l, reverse=False)
                 z, dyn_ld = glowchain(z.contiguous(), conditions[l].contiguous(),
                                       params, cfg.clamp_type, False)
                 logdet = logdet + dyn_ld + static_ld_px * (z.shape[1] * z.shape[2])
             else:
                 for k in range(cfg.K):
-                    z, logdet = self.step(l, k)(z, conditions[l], logdet, ddi)
+                    z, logdet = self.step(l, k)(z, conditions[l], logdet, ddi,
+                                                training)
             if l < cfg.L - 1:
                 z, logdet = getattr(self, f"split{l}")(z, conditions[l],
                                                        logdet, ddi)
         return z, logdet
 
     def g(self, z, conditions: Sequence, noise, temperature: float = 1.0,
-          chain: dict | None = None):
-        """z -> x. ``noise`` draws the split eps, scale L-2 first."""
+          chain: dict | None = None, training: bool = True):
+        """z -> x. ``noise`` draws the split eps, scale L-2 first. The
+        reverse of a ``BatchNormFlow`` always uses its running statistics,
+        so ``training`` (kept for the JAX signature) changes nothing."""
         cfg = self.cfg
         if chain is None:
-            chain = self.prepare_chain()
+            chain = self.prepare_chain(z.shape[0])
         x = z
         for l in reversed(range(cfg.L)):
             if l < cfg.L - 1:
@@ -243,7 +284,7 @@ class ListGlow(nn.Module):
 
     def log_prob(self, x, conditions, base_condition, noise=None,
                  logdet: float = 0.0, ddi: bool = False,
-                 dequantize: bool = True):
+                 dequantize: bool = True, training: bool = True):
         """(z, nll [B]). With ``dequantize``, ``noise`` draws the uniform
         dequantization noise in [0, 1/n_bins); the -log(n_bins)·D
         correction is always applied."""
@@ -253,17 +294,18 @@ class ListGlow(nn.Module):
         if dequantize:
             x = x + noise.uniform(x, 0.0, 1.0 / n_bins)
         obj = torch.full((b,), logdet - math.log(n_bins) * dims,
-                         dtype=torch.float32, device=x.device)
-        z, obj = self.f(x, conditions, obj, ddi)
+                         dtype=x.dtype, device=x.device)
+        z, obj = self.f(x, conditions, obj, ddi, training)
         mean, log_scale = self.base_params(base_condition, b, ddi)
         obj = obj + batch_reduce(normal_log_prob(z, mean, torch.exp(log_scale)))
         return z, -obj
 
     def sample(self, conditions, base_condition, noise,
-               temperature: float = 0.8, chain: dict | None = None):
+               temperature: float = 0.8, chain: dict | None = None,
+               training: bool = True):
         """Draw x: z from the base prior at ``temperature``, then ``g``.
         Draws the base eps first, then the split eps."""
         mean, log_scale = self.base_params(base_condition,
                                            base_condition.shape[0])
         z = mean + torch.exp(log_scale) * temperature * noise.normal(mean)
-        return self.g(z, conditions, noise, temperature, chain)
+        return self.g(z, conditions, noise, temperature, chain, training)

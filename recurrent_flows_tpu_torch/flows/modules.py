@@ -9,8 +9,8 @@ conv kernels, and the step actnorm into the 1x1 (forward through the
 ``actnorm_invconv`` kernel). The data-dependent-init pass (``ddi=True``,
 see ``flows/ddi.py``) is the exception: there every ActNorm runs unfolded
 on its own input, sets its ``bias``/``logs`` from it in place, and uses
-the fresh values. BatchNormFlow is not ported yet (ROADMAP.md queue 1,
-item 1).
+the fresh values. A ``Conv2dNorm`` with a batch norm or no norm, and the
+``BatchNormFlow`` step norm, have nothing to fold.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from ..nn.layers import Conv2d, act, conv_nhwc
 from ..ops.fused import actnorm_invconv, coupling_transform
 from ..ops.glowstep import clamp
 from ..utils.numerics import batch_reduce, normal_log_prob, split_feature
+from ..utils.running_stats import ema_, flow_stats_update
 
 
 class ActNorm(nn.Module):
@@ -49,28 +50,82 @@ class ActNorm(nn.Module):
         return y, logdet
 
 
-class InvConv(nn.Module):
-    """LU-parameterized invertible 1x1 conv. ``p`` and ``sign_s`` are
-    buffers (the JAX package's 'consts' collection)."""
+class BatchNormFlow(nn.Module):
+    """RealNVP-style batch-norm bijection with per-position parameters and
+    running statistics, all [H, W, C]. The forward in training mode
+    normalises with the batch's mean and biased variance over axis 0, eps
+    added into the variance (and into what the running variance stores);
+    otherwise, and always in reverse, with the running statistics. These
+    update, r <- momentum·r + (1-momentum)·batch, only inside
+    ``utils.running_stats.updating_running_stats``."""
 
-    def __init__(self, num_channels: int, *, device=None, generator=None):
+    def __init__(self, spatial_shape, momentum: float = 0.0, eps: float = 1e-5,
+                 *, device=None):
         super().__init__()
-        c = num_channels
-        gdev = generator.device if generator is not None else "cpu"
-        a = torch.randn((c, c), generator=generator, device=gdev).double()
-        q, r = torch.linalg.qr(a)
-        w0 = (q * torch.sign(torch.diagonal(r))).cpu()  # orthogonal init
+        self.momentum, self.eps = momentum, eps
+        shape = tuple(spatial_shape)
+        self.log_gamma = nn.Parameter(torch.zeros(shape, device=device))
+        self.beta = nn.Parameter(torch.zeros(shape, device=device))
+        self.register_buffer("running_mean", torch.zeros(shape, device=device))
+        self.register_buffer("running_var", torch.ones(shape, device=device))
+
+    def forward(self, x, logdet=None, training: bool = True):
+        if training:
+            mean = x.mean(0)
+            var = (x - mean).square().mean(0) + self.eps
+            if flow_stats_update():
+                ema_(self.running_mean, mean, self.momentum)
+                ema_(self.running_var, var, self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = torch.exp(self.log_gamma) * (x - mean) * torch.rsqrt(var) + self.beta
+        if logdet is not None:
+            logdet = logdet + (self.log_gamma - 0.5 * torch.log(var)).sum()
+        return y, logdet
+
+    def reverse(self, y):
+        """The inverse, with the running statistics."""
+        return ((y - self.beta) * torch.exp(-self.log_gamma)
+                * torch.sqrt(self.running_var) + self.running_mean)
+
+
+def _orthogonal(c: int, generator) -> torch.Tensor:
+    """A random orthogonal [c, c] matrix (float64, CPU): QR of a normal
+    draw, the signs of R's diagonal moved into Q."""
+    gdev = generator.device if generator is not None else "cpu"
+    a = torch.randn((c, c), generator=generator, device=gdev).double()
+    q, r = torch.linalg.qr(a)
+    return (q * torch.sign(torch.diagonal(r))).cpu()
+
+
+class InvConv(nn.Module):
+    """Invertible 1x1 conv: LU-parameterized (``p`` and ``sign_s`` are
+    buffers, the JAX package's 'consts' collection), or with
+    ``lu_decomposed=False`` a plain ``weight`` [C, C] whose log-determinant
+    is slogdet(W) and whose inverse is inv(W)."""
+
+    def __init__(self, num_channels: int, lu_decomposed: bool = True,
+                 *, device=None, generator=None):
+        super().__init__()
+        self.lu_decomposed = lu_decomposed
+        w0 = _orthogonal(num_channels, generator)  # orthogonal init
+        f32 = dict(dtype=torch.float32, device=device)
+        if not lu_decomposed:
+            self.weight = nn.Parameter(w0.to(**f32))
+            return
         p0, l0, u0 = torch.linalg.lu(w0)
         s0 = torch.diagonal(u0)
-        f32 = dict(dtype=torch.float32, device=device)
         self.register_buffer("p", p0.to(**f32))
         self.register_buffer("sign_s", torch.sign(s0).to(**f32))
         self.lower = nn.Parameter(l0.to(**f32))
         self.log_s = nn.Parameter(torch.log(torch.abs(s0)).to(**f32))
         self.upper = nn.Parameter(torch.triu(u0, 1).to(**f32))
 
-    def weight(self, reverse: bool):
-        """W = P·L·U, or W⁻¹ = U⁻¹·L⁻¹·Pᵀ by triangular solves."""
+    def matrix(self, reverse: bool):
+        """W, or W⁻¹: inv(W) for the plain weight, U⁻¹·L⁻¹·Pᵀ by
+        triangular solves under LU (W = P·L·U)."""
+        if not self.lu_decomposed:
+            return torch.linalg.inv(self.weight) if reverse else self.weight
         c = self.log_s.shape[0]
         eye = torch.eye(c, device=self.lower.device)
         l_mask = torch.tril(torch.ones_like(eye), -1)
@@ -83,12 +138,18 @@ class InvConv(nn.Module):
                                               unitriangular=True)
         return u_inv @ l_inv @ self.p.T
 
+    def log_det_px(self):
+        """log|det W|, the log-determinant per pixel."""
+        if not self.lu_decomposed:
+            return torch.linalg.slogdet(self.weight)[1]
+        return self.log_s.sum()
+
     def forward(self, x, logdet=None, fold_bias=None, fold_logs=None):
         """x·Wᵀ; with ``fold_bias``/``fold_logs`` the step actnorm before it
         is folded in, ((x + b)·e^s)·Wᵀ, through the ``actnorm_invconv``
         kernel, and its logdet Σ s·H·W is accounted here."""
-        w = self.weight(reverse=False)
-        dlogdet = self.log_s.sum()
+        w = self.matrix(reverse=False)
+        dlogdet = self.log_det_px()
         if fold_bias is not None:
             z = actnorm_invconv(x.contiguous(), fold_bias, fold_logs,
                                 w.contiguous())
@@ -99,26 +160,45 @@ class InvConv(nn.Module):
             logdet = logdet + dlogdet * (x.shape[1] * x.shape[2])
         return z, logdet
 
-    def reverse(self, x, fold_bias, fold_logs):
-        """Inverse 1x1, then the inverse of the step actnorm folded in:
+    def reverse(self, x, fold_bias=None, fold_logs=None):
+        """Inverse 1x1, x·W⁻ᵀ; with ``fold_bias``/``fold_logs`` then the
+        inverse of the step actnorm folded in:
         (y·W⁻ᵀ)·e^{-s} - b == y·(diag(e^{-s})·W⁻¹)ᵀ - b."""
-        w = self.weight(reverse=True) * torch.exp(-fold_logs)[:, None]
-        return x @ w.T - fold_bias
+        w = self.matrix(reverse=True)
+        if fold_bias is None:
+            return x @ w.T
+        return x @ (w * torch.exp(-fold_logs)[:, None]).T - fold_bias
 
 
 class Conv2dNorm(nn.Module):
-    """Conv (kernel ~ N(0, 0.05²), no bias) + actnorm, the actnorm folded
-    into the kernel: conv_{W·e^logs}(x) + b·e^logs. The DDI pass runs the
-    actnorm unfolded, on the raw conv output."""
+    """Conv (kernel ~ N(0, 0.05²)) + ``norm``. 'actnorm' (no conv bias): the
+    actnorm folded into the kernel, conv_{W·e^logs}(x) + b·e^logs; the DDI
+    pass runs it unfolded, on the raw conv output. 'batchnorm': the conv
+    with its bias, then a batch norm over (B, H, W) with the batch's
+    statistics only (biased variance, eps 1e-5) and ``bn_scale``/``bn_bias``.
+    'none': the conv with its bias."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
-                 *, device=None, generator=None):
+                 norm: str = "actnorm", *, device=None, generator=None):
         super().__init__()
-        self.conv = Conv2d(in_channels, out_channels, kernel, use_bias=False,
-                           kernel_std=0.05, device=device, generator=generator)
-        self.actnorm = ActNorm(out_channels, device=device)
+        self.norm = norm
+        self.conv = Conv2d(in_channels, out_channels, kernel,
+                           use_bias=norm != "actnorm", kernel_std=0.05,
+                           device=device, generator=generator)
+        if norm == "actnorm":
+            self.actnorm = ActNorm(out_channels, device=device)
+        elif norm == "batchnorm":
+            self.bn_scale = nn.Parameter(torch.ones(out_channels, device=device))
+            self.bn_bias = nn.Parameter(torch.zeros(out_channels, device=device))
 
     def forward(self, x, ddi: bool = False):
+        if self.norm != "actnorm":
+            y = conv_nhwc(x, self.conv.kernel, self.conv.bias)
+            if self.norm == "batchnorm":
+                mean = y.mean((0, 1, 2), keepdim=True)
+                var = (y - mean).square().mean((0, 1, 2), keepdim=True)
+                y = (y - mean) * torch.rsqrt(var + 1e-5) * self.bn_scale + self.bn_bias
+            return y
         if ddi:
             return self.actnorm(conv_nhwc(x, self.conv.kernel), ddi=True)[0]
         g = torch.exp(self.actnorm.logs)
@@ -146,16 +226,19 @@ class Conv2dZeros(nn.Module):
 class AffineCoupling(nn.Module):
     """Conditional affine coupling with 4 clamps: forward
     z2' = (z2 + shift)·e^s, logdet += Σ s; both directions end in the
-    ``coupling_transform`` kernel."""
+    ``coupling_transform`` kernel. ``norm`` is the norm of the net's two
+    ``Conv2dNorm`` (GlowConfig.coupling_norm)."""
 
     def __init__(self, x_channels: int, cond_channels: int,
                  hidden_units: int = 256, non_lin: str = "relu",
-                 clamp_type: str = "realnvp", *, device=None, generator=None):
+                 clamp_type: str = "realnvp", norm: str = "actnorm",
+                 *, device=None, generator=None):
         super().__init__()
         kw = dict(device=device, generator=generator)
         self.non_lin, self.clamp_type = non_lin, clamp_type
-        self.net0 = Conv2dNorm(x_channels // 2 + cond_channels, hidden_units, 3, **kw)
-        self.net1 = Conv2dNorm(hidden_units, hidden_units, 1, **kw)
+        self.net0 = Conv2dNorm(x_channels // 2 + cond_channels, hidden_units, 3,
+                               norm, **kw)
+        self.net1 = Conv2dNorm(hidden_units, hidden_units, 1, norm, **kw)
         self.net2 = Conv2dZeros(hidden_units, x_channels, 3, device=device)
         if clamp_type == "realnvp":
             half = x_channels // 2

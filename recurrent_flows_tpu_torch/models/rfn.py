@@ -7,6 +7,9 @@ upscaler -> ``ListGlow.sample``). The training objective: ``loss`` (one
 extractor call over all frames, the h-LSTM and the optional reverse
 a-LSTM, then per frame encoder, prior, KL, upscaler and
 ``ListGlow.log_prob``), with ``ddi`` for the data-dependent init.
+``init_running_stats`` and ``stats_refresh`` are the passes that update
+running statistics (``flow_norm='batchnorm'``, ``track_running_stats``);
+``eval_norm`` normalises the feature nets with them.
 ``reconstruct``, ``sample`` and the diagnostics come later (ROADMAP.md
 queue 1).
 
@@ -18,7 +21,8 @@ frame the prior eps, the flow's base eps, then one eps per split, scale
 L-2 first. ``loss``: per frame the prior eps, the encoder eps and the
 dequantization uniform, then one eps per overshoot depth; all are drawn
 before the per-frame steps run, so a step recomputed in the backward
-sees the draws of its forward. ``ddi``: the encoder eps, then the
+sees the draws of its forward. ``ddi`` and ``stats_refresh``: the encoder
+eps, then the dequantization uniform. ``init_running_stats``: the
 dequantization uniform.
 """
 
@@ -35,20 +39,26 @@ from ..nn.layers import SimpleParamNet
 from ..nn.vgg import VGGDownscaler, VGGUpscaler, downscaler_layer_sizes
 from ..utils.numerics import (NoiseSource, batch_reduce, float32_precision,
                               free_bits_kl, normal_kl, normal_sample)
+from ..utils.running_stats import updating_running_stats
 
 
 class RFN(nn.Module):
     """RFN on an explicit ``device``, its parameters initialised from
     ``generator`` (a CPU generator seeded 0 when None). With ``remat``,
     ``loss`` keeps no activations of its per-frame steps and recomputes
-    each step in the backward (``torch.utils.checkpoint``)."""
+    each step in the backward (``torch.utils.checkpoint``). ``eval_norm``
+    (torch's ``model.eval()`` for the batch norms of the extractor,
+    upscaler, prior and encoder) normalises them with their running
+    averages where ``cfg.track_running_stats`` keeps them."""
 
-    def __init__(self, cfg: RFNConfig, *, remat: bool = True, device=None,
+    def __init__(self, cfg: RFNConfig, *, remat: bool = True,
+                 eval_norm: bool = False, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.remat = remat
+        self.eval_norm = eval_norm
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         kw = dict(device=device, generator=generator)
@@ -62,13 +72,15 @@ class RFN(nn.Module):
             cfg.extractor_structure, cfg.x_channels,
             norm_type=cfg.norm_type_features, non_lin="relu",
             scale=cfg.structure_scaler, skip_con=self._use_skip_list,
-            tanh=cfg.downscaler_tanh, **kw)
+            tanh=cfg.downscaler_tanh, track_running_stats=cfg.track_running_stats,
+            **kw)
         skip_ch = [s[2] for s in sizes]
         self.upscaler = VGGUpscaler(
             cfg.upscaler_structure, cfg.h_dim + cfg.z_dim,
             skip_channels=skip_ch if cfg.skip_connection_features else None,
             norm_type=cfg.norm_type_features, non_lin="leakyrelu",
-            scale=cfg.structure_scaler, tanh=cfg.upscaler_tanh, **kw)
+            scale=cfg.structure_scaler, tanh=cfg.upscaler_tanh,
+            track_running_stats=cfg.track_running_stats, **kw)
         self.lstm = ConvLSTMCell(feat_c, cfg.h_dim, (hu, hu), **kw)
         if cfg.enable_smoothing:
             self.a_lstm = ConvLSTMCell(cfg.h_dim + feat_c, cfg.a_dim, (hu, hu), **kw)
@@ -77,10 +89,11 @@ class RFN(nn.Module):
             enc_in = cfg.h_dim + cfg.z_dim + feat_c
         self.prior = SimpleParamNet(cfg.prior_structure, cfg.h_dim + cfg.z_dim,
                                     cfg.z_dim, norm_type=cfg.norm_type,
-                                    non_lin="leakyrelu", **kw)
+                                    non_lin="leakyrelu",
+                                    track_running_stats=cfg.track_running_stats, **kw)
         self.encoder = SimpleParamNet(cfg.encoder_structure, enc_in, cfg.z_dim,
-                                      norm_type=cfg.norm_type,
-                                      non_lin="leakyrelu", **kw)
+                                      norm_type=cfg.norm_type, non_lin="leakyrelu",
+                                      track_running_stats=cfg.track_running_stats, **kw)
         # upscaler outputs, high-res first, then the skip-mode combination
         up_ch = [[i for i in b if isinstance(i, int)][-1]
                  for b in cfg.upscaler_structure][::-1]
@@ -97,6 +110,20 @@ class RFN(nn.Module):
                 torch.zeros((1, hu, hu, dim), device=device)))
 
     # ------------------------------------------------------------------
+    @property
+    def _ura(self) -> bool:
+        """The feature nets normalise with their running averages."""
+        return bool(self.eval_norm and self.cfg.track_running_stats)
+
+    def _extract(self, x):
+        return self.extractor(x, self._ura)
+
+    def _enc_net(self, x):
+        return self.encoder(x, self._ura)
+
+    def _prior_net(self, x):
+        return self.prior(x, self._ura)
+
     def get_inits(self, batch: int):
         """The learned [1, ...] initial states, broadcast to the batch."""
         rep = lambda p: p.expand((batch,) + p.shape[1:])
@@ -107,7 +134,7 @@ class RFN(nn.Module):
         """One extractor call over all B·T frames: [B,T,H,W,C] -> (per-block
         maps [T,B,h,w,c] or None, the last block's map)."""
         b, t = x.shape[:2]
-        out = self.extractor(x.reshape((b * t,) + x.shape[2:]))
+        out = self._extract(x.reshape((b * t,) + x.shape[2:]))
 
         def tm(a):
             return a.reshape((b, t) + a.shape[1:]).transpose(0, 1)
@@ -122,9 +149,9 @@ class RFN(nn.Module):
         cfg = self.cfg
         hz = torch.cat([ht, zt], -1)
         if cfg.skip_connection_features:
-            conds = self.upscaler(hz, skip_list=skips_prev)
+            conds = self.upscaler(hz, skips_prev, self._ura)
         else:
-            conds = self.upscaler(hz)
+            conds = self.upscaler(hz, use_running_average=self._ura)
         if cfg.skip_connection_flow == "with_skip":
             conds = [torch.cat([c, s], -1) for c, s in zip(conds, skips_prev)]
         elif cfg.skip_connection_flow == "only_skip":
@@ -145,20 +172,18 @@ class RFN(nn.Module):
             enc_in = torch.cat([at, zxprev], -1)
         else:
             enc_in = torch.cat([ht, zxprev, feat_t], -1)
-        enc_mean, enc_std = self.encoder(enc_in)
+        enc_mean, enc_std = self._enc_net(enc_in)
         if cfg.res_q:
-            prior_mean, prior_std = self.prior(torch.cat([ht, zxprev], -1))
+            prior_mean, prior_std = self._prior_net(torch.cat([ht, zxprev], -1))
             enc_mean = prior_mean + enc_mean
         else:
-            prior_mean, prior_std = self.prior(torch.cat([ht, zprev], -1))
+            prior_mean, prior_std = self._prior_net(torch.cat([ht, zprev], -1))
         return enc_mean, enc_std, prior_mean, prior_std
 
     # ------------------------------------------------------------------
-    def ddi(self, x, noise: NoiseSource):
-        """The data-dependent-init pass over frames 0-1 of x [B, T>=2, H, W,
-        C]: one step of the loss with every ActNorm of the flow in ``ddi``
-        mode, which sets it in place (call it through
-        ``flows.ddi.data_dependent_init``). Returns the nll [B]."""
+    def _first_step(self, x):
+        """Frames 0-1 of x [B, T>=2, H, W, C] up to the flow: (conditions,
+        base condition, encoder mean and std) of frame 1."""
         cfg = self.cfg
         b = x.shape[0]
         feats, f_last = self._features(x[:, :2])
@@ -169,11 +194,44 @@ class RFN(nn.Module):
             enc_in = torch.cat([at, z0x], -1)
         else:
             enc_in = torch.cat([ht, z0x, f_last[1]], -1)
-        enc_mean, enc_std = self.encoder(enc_in)
-        zxt = normal_sample(enc_mean, enc_std, noise.normal(enc_mean))
+        enc_mean, enc_std = self._enc_net(enc_in)
         skips_prev = [f[0] for f in feats] if feats is not None else None
+        return ht, skips_prev, enc_mean, enc_std
+
+    def ddi(self, x, noise: NoiseSource, *, ddi: bool = True):
+        """The data-dependent-init pass over frames 0-1 of x [B, T>=2, H, W,
+        C]: one step of the loss with every ActNorm of the flow in ``ddi``
+        mode, which sets it in place (call it through
+        ``flows.ddi.data_dependent_init``). Returns the nll [B]. With
+        ``ddi=False`` the same pass leaves the ActNorms as they are
+        (``stats_refresh``)."""
+        ht, skips_prev, enc_mean, enc_std = self._first_step(x)
+        zxt = normal_sample(enc_mean, enc_std, noise.normal(enc_mean))
         conds, hz = self._flow_conditions(ht, zxt, skips_prev)
-        _, nll = self.flow.log_prob(x[:, 1], conds, hz, noise, ddi=True)
+        _, nll = self.flow.log_prob(x[:, 1], conds, hz, noise, ddi=ddi)
+        return nll
+
+    @torch.no_grad()
+    def stats_refresh(self, x, noise: NoiseSource):
+        """Refresh the running statistics (the flow's BatchNormFlow and the
+        NormLayers that track them) from x [B, T>=2, H, W, C]: the DDI pass
+        with ``ddi=False``, its flow on frame 1 only, inside
+        ``updating_running_stats``. Returns the nll [B]."""
+        with updating_running_stats():
+            return self.ddi(x, noise, ddi=False)
+
+    @torch.no_grad()
+    def init_running_stats(self, x, noise: NoiseSource):
+        """What the JAX package's ``model.init`` leaves in the
+        ``batch_stats`` collection: one pass of frames 0-1 with the
+        encoder's mean as the latent, inside
+        ``updating_running_stats(initializing=True)``, so the flow's
+        BatchNormFlows keep this batch's statistics (the NormLayers keep
+        0 and 1). Draws the dequantization uniform. Returns the nll [B]."""
+        ht, skips_prev, enc_mean, _ = self._first_step(x)
+        with updating_running_stats(initializing=True):
+            conds, hz = self._flow_conditions(ht, enc_mean, skips_prev)
+            _, nll = self.flow.log_prob(x[:, 1], conds, hz, noise)
         return nll
 
     @float32_precision()
@@ -251,7 +309,7 @@ class RFN(nn.Module):
         for d in range(min(cfg.D + 1, n_t)):
             n = n_t - d
             inp = torch.cat([hs[d:], zprev[:n]], -1)
-            pm, ps = self.prior(inp.reshape((-1,) + inp.shape[2:]))
+            pm, ps = self._prior_net(inp.reshape((-1,) + inp.shape[2:]))
             pm = pm.reshape((n,) + inp.shape[1:4] + (-1,))
             ps = ps.reshape(pm.shape)
             zprev = pm + ps * noise.normal(pm)
@@ -297,19 +355,19 @@ class RFN(nn.Module):
         full float32 (TF32 off), whatever the caller's settings.
         """
         temperature = self.cfg.temperature if temperature is None else temperature
-        chain = self.flow.prepare_chain()
+        chain = self.flow.prepare_chain(x.shape[0])
         h, c, zprev, _ = self._warmup(x, n_conditions, noise, kl_temperature)
         prediction = x[:, n_conditions - 1]
         preds = []
         for _ in range(n_predictions):
             if self._use_skip_list:
-                cond_list = self.extractor(prediction)
+                cond_list = self._extract(prediction)
                 condition = cond_list[-1]
             else:
                 cond_list = None
-                condition = self.extractor(prediction)
+                condition = self._extract(prediction)
             h, c = self.lstm(condition, h, c)
-            prior_mean, prior_std = self.prior(torch.cat([h, zprev], -1))
+            prior_mean, prior_std = self._prior_net(torch.cat([h, zprev], -1))
             zprev = normal_sample(prior_mean, prior_std * kl_temperature,
                                   noise.normal(prior_mean))
             conds, hz = self._flow_conditions(h, zprev, cond_list)

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.running_stats import ema_, layer_stats_update
+
 
 def act(x: torch.Tensor, non_lin: str) -> torch.Tensor:
     """relu / leakyrelu(0.2)."""
@@ -81,25 +83,45 @@ class Conv2d(nn.Module):
 
 
 class NormLayer(nn.Module):
-    """{batchnorm | instancenorm | none}. Batch norm uses the current
-    batch's statistics over axes (0,1,2), biased variance, eps 1e-5 inside
-    the rsqrt, and keeps no running averages."""
+    """{batchnorm | instancenorm | none}. Batch norm normalises with the
+    current batch's statistics over axes (0,1,2), biased variance, eps 1e-5
+    inside the rsqrt. With ``track_running_stats`` it also keeps running
+    averages in torch's convention (momentum 0.1, new = (1-m)·old +
+    m·batch, the unbiased variance), updated only in a refresh pass
+    (``utils.running_stats.updating_running_stats``, never in its
+    ``initializing`` form), and ``use_running_average`` normalises with
+    them."""
 
-    def __init__(self, norm_type: str, channels: int, *, device=None):
+    def __init__(self, norm_type: str, channels: int,
+                 track_running_stats: bool = False, momentum: float = 0.1,
+                 *, device=None):
         super().__init__()
         if norm_type not in ("batchnorm", "instancenorm", "none"):
             raise ValueError(f"unknown norm type: {norm_type}")
         self.norm_type = norm_type
+        self.momentum = momentum
+        self.track = norm_type == "batchnorm" and track_running_stats
         if norm_type == "batchnorm":
             self.scale = nn.Parameter(torch.ones(channels, device=device))
             self.bias = nn.Parameter(torch.zeros(channels, device=device))
+        if self.track:
+            self.register_buffer("running_mean", torch.zeros(channels, device=device))
+            self.register_buffer("running_var", torch.ones(channels, device=device))
 
-    def forward(self, x):
+    def forward(self, x, use_running_average: bool = False):
         if self.norm_type == "none":
             return x
         axes = (0, 1, 2) if self.norm_type == "batchnorm" else (1, 2)
-        mean = x.mean(axes, keepdim=True)
-        var = (x - mean).square().mean(axes, keepdim=True)
+        if self.track and use_running_average:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean = x.mean(axes, keepdim=True)
+            var = (x - mean).square().mean(axes, keepdim=True)
+            if self.track and layer_stats_update():
+                n = x.shape[0] * x.shape[1] * x.shape[2]
+                ema_(self.running_mean, mean.reshape(-1), 1.0 - self.momentum)
+                ema_(self.running_var, var.reshape(-1) * (n / max(n - 1, 1)),
+                     1.0 - self.momentum)
         y = (x - mean) * torch.rsqrt(var + 1e-5)
         if self.norm_type == "batchnorm":
             y = y * self.scale + self.bias
@@ -114,6 +136,7 @@ class SimpleParamNet(nn.Module):
     def __init__(self, structure: Sequence, in_channels: int,
                  out_channels: int, norm_type: str = "batchnorm",
                  non_lin: str = "leakyrelu", scale: int = 2,
+                 track_running_stats: bool = False,
                  *, device=None, generator=None):
         super().__init__()
         self.structure = tuple(structure)
@@ -129,16 +152,18 @@ class SimpleParamNet(nn.Module):
                 out, stride = int(i), 1
             self.add_module(f"conv_{j}", Conv2d(c, out, 3, stride, **kw))
             self.add_module(f"norm_{j}", NormLayer(norm_type, out,
+                                                   track_running_stats,
                                                    device=device))
             c = out
         self.param_conv = Conv2d(c, 2 * out_channels, 3, **kw)
 
-    def forward(self, x):
+    def forward(self, x, use_running_average: bool = False):
         for j, i in enumerate(self.structure):
             if i == "pool":
                 x = max_pool_nhwc(x)
             else:
                 x = getattr(self, f"conv_{j}")(x)
-                x = act(getattr(self, f"norm_{j}")(x), self.non_lin)
+                x = act(getattr(self, f"norm_{j}")(x, use_running_average),
+                        self.non_lin)
         loc, log_scale = torch.chunk(self.param_conv(x), 2, dim=-1)
         return loc, F.softplus(log_scale)

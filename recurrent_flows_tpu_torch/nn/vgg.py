@@ -52,6 +52,7 @@ class VGGDownscaler(nn.Module):
     def __init__(self, structures: Sequence[Sequence], in_channels: int,
                  norm_type: str = "batchnorm", non_lin: str = "relu",
                  scale: int = 2, skip_con: bool = False, tanh: bool = False,
+                 track_running_stats: bool = False,
                  *, device=None, generator=None):
         super().__init__()
         self.structures = tuple(tuple(s) for s in structures)
@@ -67,8 +68,8 @@ class VGGDownscaler(nn.Module):
                 out, stride = (int(c * scale), 2) if i == "conv" else (int(i), 1)
                 self.add_module(name, Conv2d(c, out, 3, stride, use_bias=False,
                                              device=device, generator=generator))
-                self.add_module(name + "_norm", NormLayer(norm_type, out,
-                                                          device=device))
+                self.add_module(name + "_norm", NormLayer(
+                    norm_type, out, track_running_stats, device=device))
                 c = out
 
     def _activation(self, l, count, n, x):
@@ -78,7 +79,7 @@ class VGGDownscaler(nn.Module):
             return 0.5 * torch.tanh(x)
         return act(x, self.non_lin)
 
-    def forward(self, x):
+    def forward(self, x, use_running_average: bool = False):
         outputs = []
         for l, structure in enumerate(self.structures):
             n = len(structure)
@@ -87,7 +88,8 @@ class VGGDownscaler(nn.Module):
                     x = max_pool_nhwc(x)
                 else:
                     name = f"b{l}_{count}"
-                    x = getattr(self, name + "_norm")(getattr(self, name)(x))
+                    x = getattr(self, name + "_norm")(getattr(self, name)(x),
+                                                      use_running_average)
                     x = self._activation(l, count, n, x)
             if self.skip_con:
                 outputs.append(x)
@@ -102,6 +104,7 @@ class VGGUpscaler(nn.Module):
                  skip_channels: Sequence[int] | None = None,
                  norm_type: str = "batchnorm", non_lin: str = "leakyrelu",
                  scale: int = 2, tanh: bool = False,
+                 track_running_stats: bool = False,
                  *, device=None, generator=None):
         """``skip_channels``: channels of the extractor's outputs, high-res
         first, when skips are concatenated; None for no skips."""
@@ -124,11 +127,11 @@ class VGGUpscaler(nn.Module):
                 name = f"b{l}_{count}"
                 self.add_module(name, Conv2d(c, ch, 3, use_bias=False,
                                              device=device, generator=generator))
-                self.add_module(name + "_norm", NormLayer(norm_type, ch,
-                                                          device=device))
+                self.add_module(name + "_norm", NormLayer(
+                    norm_type, ch, track_running_stats, device=device))
                 c = ch
 
-    def forward(self, x, skip_list=None):
+    def forward(self, x, skip_list=None, use_running_average: bool = False):
         outputs = []
         rev_skips = list(skip_list)[::-1] if self.skips else None
         for l, structure in enumerate(self.structures):
@@ -139,7 +142,8 @@ class VGGUpscaler(nn.Module):
             convs = [i for i in structure if isinstance(i, int)]
             for count in range(1, len(convs) + 1):
                 name = f"b{l}_{count}"
-                x = getattr(self, name + "_norm")(getattr(self, name)(x))
+                x = getattr(self, name + "_norm")(getattr(self, name)(x),
+                                                  use_running_average)
                 if count == len(convs) and self.tanh:
                     x = 0.5 * torch.tanh(x)
                 else:

@@ -12,7 +12,8 @@ Replaces ``recurrent_flows_tpu/ops/pallas/fused.py``:
   and :func:`coupling_mode` its loads.
 * ``actnorm_invconv`` replaces ``_actnorm_invconv_pallas``
   (``fused.py:166``): ``((x + b)·e^logs)·Wᵀ`` over rows, the step actnorm
-  folded into the invertible 1x1, in CUDA C++ (``csrc/actnorm_invconv.cu``);
+  folded into the invertible 1x1, in CUDA C++ (``csrc/actnorm_invconv.cu``),
+  at any C (W streamed through shared memory in tiles above 64 channels);
   :func:`ainv_plan` decides its geometry.
 * ``convlstm_gates`` replaces ``_gates_pallas`` (``fused.py:257``): the
   peephole ConvLSTM update from the fused gate-conv output, in CUDA C++
@@ -335,17 +336,19 @@ def convlstm_gates(gates, c, w_ci, w_cf, w_co):
 convlstm_gates.launches = 0
 
 
-MAX_INVCONV_CHANNELS = 64  # the kernel's shared memory holds e^logs and b·e^logs of 64
-AINV_WIDTHS = (4, 8, 16, 32, 64)  # the kernel's compile-time widths
+MAX_INVCONV_CHANNELS = 64  # the widest C the run-time-width instance takes (vec 0)
+AINV_WIDTHS = (4, 8, 16, 32, 64)  # compile-time widths, the gray presets'
+AINV_RGB_WIDTHS = (12, 24, 48, 96)  # compile-time widths, the RGB preset's
 AINV_MAX_THREADS = 256
+AINV_WIDE_ROWS, AINV_WIDE_COLS = 32, 32  # the tiled regime's output tile, at most
 N_SMS = 132  # streaming multiprocessors of one H100 SXM
 
 
 class AinvPlan(NamedTuple):
     """The launch geometry of ``csrc/actnorm_invconv.cu`` on x [rows, C]."""
 
-    vec: int  # 1: the instance of compile-time width C, 16-byte loads; 0: run-time C
-    lanes: int  # threads that share one 4-wide output vector (1 where vec is 0)
+    vec: int  # 1: the instance of compile-time width C, 16-byte loads; 0: run-time C <= 64; 2: tiled
+    lanes: int  # threads that share one 4-wide output vector (1 where vec is 0 or 2)
     groups: int  # 4-wide output vectors of a row per block, a power-of-2 divisor of C/4 (0: vec 0)
     rows_per_block: int  # block (i, j) takes rows [i·rows_per_block, ...), vectors [j·groups, ...)
     threads: int  # rows_per_block · groups · lanes (rows_per_block · C where vec is 0)
@@ -357,24 +360,36 @@ def ainv_plan(rows: int, c: int, *, aligned: bool = True) -> AinvPlan:
     pure function of the shapes (and of whether the pointers are 16-byte
     aligned).
 
-    At c in ``AINV_WIDTHS`` (and aligned pointers) a thread computes a
-    4-wide output vector of one row; from c = 32 the c-term sum of each
-    output is split over ``lanes`` = 4 threads, and a block computes
-    ``groups`` = 2 output vectors of its rows (8 outputs, so it reads 8 rows
-    of W, not all c). Any other c <= 64 takes the run-time-width instance,
-    one thread per output. The blocks are at most ``N_SMS``, one per SM, of
-    at most ``AINV_MAX_THREADS`` threads. This plan was the fastest or
-    within 0.05 µs of it at every scale of ``rfn_mnist_production`` on the
-    H100 (``PERF.md``); ``csrc/actnorm_invconv.cu`` compiles only the lanes
-    it picks."""
-    if rows < 1 or not 1 <= c <= MAX_INVCONV_CHANNELS:
+    At c in ``AINV_WIDTHS`` or ``AINV_RGB_WIDTHS`` (and aligned pointers)
+    a thread computes a 4-wide output vector of one row; from c = 32 the
+    c-term sum of each output is split over ``lanes`` = 4 threads, and a
+    block computes ``groups`` output vectors of its rows: 2 where they
+    divide c/4 (8 outputs, so it reads 8 rows of W, not all c), else 1.
+    Any other c <= 64 takes the run-time-width instance, one thread per
+    output. The blocks are at most ``N_SMS``, one per SM, of at most
+    ``AINV_MAX_THREADS`` threads. This plan was the fastest or within 0.05
+    µs of it at every scale of ``rfn_mnist_production`` on the H100
+    (``PERF.md``); ``csrc/actnorm_invconv.cu`` compiles only the lanes it
+    picks.
+
+    At any other c above 64 (aligned or not) the tiled regime (vec 2): a
+    block computes an output tile of ``rows_per_block`` (at most
+    ``AINV_WIDE_ROWS``) rows by ``AINV_WIDE_COLS`` outputs, one 4-wide
+    vector per thread (``groups`` = 8), streaming x and W through shared
+    memory 32 channels at a time; the rows per block shrink until the tiles
+    reach ``N_SMS`` blocks, where the rows allow."""
+    if rows < 1 or c < 1:
         raise ValueError(f"ainv_plan: bad shape (rows={rows}, C={c}); the kernel "
-                         f"takes 1 to {MAX_INVCONV_CHANNELS} channels")
-    vec = int(aligned and c in AINV_WIDTHS)
+                         "takes at least 1 row and 1 channel")
+    vec = int(aligned and c in AINV_WIDTHS + AINV_RGB_WIDTHS)
+    if not vec and c > MAX_INVCONV_CHANNELS:
+        groups, col_blocks = AINV_WIDE_COLS // 4, _cdiv(c, AINV_WIDE_COLS)
+        rpb = max(1, min(AINV_WIDE_ROWS, _cdiv(rows * col_blocks, N_SMS)))
+        return AinvPlan(2, 1, groups, rpb, rpb * groups, _cdiv(rows, rpb) * col_blocks)
     if not vec:
         lanes, groups, col_blocks, per_row = 1, 0, 1, c
     else:
-        lanes, groups = (4 if c >= 32 else 1), min(c // 4, 2)
+        lanes, groups = (4 if c >= 32 else 1), (2 if (c // 4) % 2 == 0 else 1)
         col_blocks, per_row = c // 4 // groups, groups * lanes
     rpb = max(1, min(AINV_MAX_THREADS // per_row, _cdiv(rows * col_blocks, N_SMS)))
     return AinvPlan(vec, lanes, groups, rpb, rpb * per_row, _cdiv(rows, rpb) * col_blocks)
@@ -429,9 +444,6 @@ def actnorm_invconv(x, bias, logs, w):
                      (x.shape, (c,), (c,), (c, c)))
     if not on_card:
         return actnorm_invconv_ref(x, bias, logs, w)
-    if c > MAX_INVCONV_CHANNELS:
-        raise ValueError(f"actnorm_invconv: {c} channels, the kernel takes "
-                         f"at most {MAX_INVCONV_CHANNELS}")
     return _ActnormInvconv.apply(x, bias, logs, w)
 
 

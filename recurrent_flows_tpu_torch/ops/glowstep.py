@@ -192,13 +192,33 @@ def launch_plan(b: int, h: int, w: int, c: int, cc: int, u: int, *,
     the slower of the two). ``batch_tile``, ``cluster_blocks`` (up to 16;
     no shape of the flow ran faster on 16), ``im``, ``ha_global`` and
     ``stages`` fix a choice, for measurements. Raises
-    ``ValueError`` where not even one sample fits.
+    ``ValueError`` where not even one sample fits (:func:`plan_exists`
+    says where, without raising).
     """
+    plan, why = _search(b, h, w, c, cc, u, batch_tile, cluster_blocks, im,
+                        ha_global, stages)
+    if plan is None:
+        raise ValueError(why)
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def plan_exists(b: int, h: int, w: int, c: int, cc: int, u: int) -> bool:
+    """``launch_plan(b, h, w, c, cc, u)`` returns a plan (where it raises,
+    False): the GlowStep kernels can take this shape. A pure function of
+    the shapes, as the flow's gates need it."""
+    return _search(b, h, w, c, cc, u)[0] is not None
+
+
+def _search(b, h, w, c, cc, u, batch_tile=None, cluster_blocks=None, im=None,
+            ha_global=None, stages=None):
+    """``launch_plan``'s search: (LaunchPlan, None), or (None, the reason
+    there is none)."""
     if min(b, h, w, cc, u) < 1 or c < 2 or c % 2:
-        raise ValueError(f"launch_plan: bad shape {(b, h, w, c, cc, u)}")
+        return None, f"launch_plan: bad shape {(b, h, w, c, cc, u)}"
     hw = h * w
     if cluster_blocks is not None and not 1 <= cluster_blocks <= 16:
-        raise ValueError("launch_plan: a cluster has 1 to 16 blocks")
+        return None, "launch_plan: a cluster has 1 to 16 blocks"
     bt = batch_tile or min(b, max(1, MAX_TILE_ROWS // hw), _cdiv(b, 16))
     pairs = (batch_tile is None and cluster_blocks is None and hw < 64
              and 2 <= b <= 8)
@@ -213,11 +233,11 @@ def launch_plan(b: int, h: int, w: int, c: int, cc: int, u: int, *,
                   if ha_global is None else ha_global)
         plan, why = _layout(b, hw, c, cc, u, bt, nb, im, via_l2, stages)
         if plan is not None:
-            return plan
+            return plan, None
         if batch_tile or bt == 1:
-            raise ValueError(f"glowstep kernels: a tile of {bt} sample(s) of "
-                             f"{h}x{w}x{c} with {cc} cond and {u} hidden "
-                             f"channels on {nb} blocks {why}")
+            return None, (f"glowstep kernels: a tile of {bt} sample(s) of "
+                          f"{h}x{w}x{c} with {cc} cond and {u} hidden "
+                          f"channels on {nb} blocks {why}")
         bt -= 1
 
 

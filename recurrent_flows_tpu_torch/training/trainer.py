@@ -1,15 +1,18 @@
 """Training harness of the port, the counterpart of
 ``recurrent_flows_tpu.training.trainer``: ``Trainer.build`` (data-dependent
 init on the first batch, Adam), ``train_step`` (preprocess -> ``model.loss``
--> backward -> optional global-norm clip -> Adam) and ``train_epoch``.
-``fit``, plots and checkpoints come later (ROADMAP.md queue 1).
+-> backward -> optional global-norm clip -> Adam), ``train_epoch`` and
+``refresh_stats`` (running statistics from a fresh batch). ``fit``, plots
+and checkpoints come later (ROADMAP.md queue 1).
 
     model = RFN(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     trainer = Trainer(model, tcfg, batches).build()   # batches: [B,T,H,W,C] in [0,1]
     metrics = trainer.train_step(next(iter(batches)), beta=1.0, lr=1e-4)
 
 A step runs in full float32 with TF32 off, forward and backward
-(``utils.float32_precision``), as the JAX package computes.
+(``utils.float32_precision``), as the JAX package computes. It moves no
+running statistic (they update only in ``build`` and ``refresh_stats``),
+and Adam steps the parameters only, never the buffers.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from ..flows.ddi import data_dependent_init
 from ..utils.numerics import NoiseSource, float32_precision
+from ..utils.running_stats import has_running_stats
 from .schedules import BetaSchedule, PlateauScheduler, linear_lr
 
 
@@ -113,13 +117,21 @@ class Trainer:
             return next(self._aux_iter)
 
     def build(self, run_ddi: bool = True, noise: NoiseSource | None = None):
-        """Data-dependent init of the flow's ActNorms on the first batch
-        (in place, TF32 off), then the Adam optimizer."""
-        if run_ddi and hasattr(self.model, "ddi"):
+        """On the first batch (TF32 off): the running statistics the JAX
+        package's ``model.init`` leaves (where the flow has BatchNormFlows:
+        ``model.init_running_stats``), then the data-dependent init of the
+        flow's ActNorms (in place); then the Adam optimizer."""
+        init_stats = (hasattr(self.model, "init_running_stats")
+                      and self.model.cfg.glow.flow_norm == "batchnorm")
+        run_ddi = run_ddi and hasattr(self.model, "ddi")
+        if init_stats or run_ddi:
             x = self._to_model_space(self._host_batch())
+            noise = noise or NoiseSource(generator=self.generator)
             with float32_precision():
-                data_dependent_init(
-                    self.model, x, noise or NoiseSource(generator=self.generator))
+                if init_stats:
+                    self.model.init_running_stats(x, noise)
+                if run_ddi:
+                    data_dependent_init(self.model, x, noise)
         self.optimizer = torch.optim.Adam(self.model.parameters(),
                                           lr=self.tcfg.learning_rate)
         return self
@@ -147,6 +159,18 @@ class Trainer:
         kl, nll = out["kl"].detach(), out["nll"].detach()
         return dict(loss=loss.detach(), kl=kl, nll=nll,
                     bits=bits_per_dim(kl, nll, dims, x.shape[1] - 1))
+
+    def refresh_stats(self, noise: NoiseSource | None = None) -> None:
+        """Update the running statistics (``model.stats_refresh``, TF32
+        off) from the next batch of ``data``, so that the sampling
+        direction and ``eval_norm`` see trained statistics. Nothing to do
+        for a model without running statistics."""
+        if not has_running_stats(self.model):
+            return
+        x = self._to_model_space(self._host_batch())
+        with float32_precision():
+            self.model.stats_refresh(
+                x, noise or NoiseSource(generator=self.generator))
 
     def train_epoch(self, steps: int | None = None) -> float:
         """Up to ``steps`` optimizer steps over ``data`` with beta and the

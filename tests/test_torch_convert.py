@@ -151,14 +151,17 @@ def _glow(**kw):
     (_glow(coupling_impl="im2col"), ValueError),
     (_glow(chain_impl="always"), ValueError),
     (_glow(clamp_type="tanh"), ValueError),
-    (_glow(flow_norm="batchnorm"), NotImplementedError),
-    (_glow(base_norm="batchnorm"), NotImplementedError),
-    (_glow(lu_decomposed=False), NotImplementedError),
-    (dataclasses.replace(rfn_mnist_production()[0], track_running_stats=True),
+    (_glow(flow_norm="none"), ValueError),
+    (_glow(base_norm="groupnorm"), ValueError),
+    (_glow(coupling_norm="instancenorm"), ValueError),
+    (dataclasses.replace(rfn_mnist_production()[0],
+                         extractor_structure=((16, "squeeze"),) * 5), NotImplementedError),
+    (dataclasses.replace(rfn_mnist_production()[0],
+                         upscaler_structure=((256,),) + (("deconv", 16),) * 4),
      NotImplementedError),
 ], ids=["packed_layout", "dual_stream", "coupling_dtype", "fold_weights",
-        "im2col", "bad_chain_impl", "bad_clamp", "batchnorm_flow", "base_norm",
-        "no_lu", "running_stats"])
+        "im2col", "bad_chain_impl", "bad_clamp", "bad_flow_norm", "bad_base_norm",
+        "bad_coupling_norm", "squeeze", "deconv"])
 def test_unsupported_configs_raise_at_construction(cfg, exc):
     with pytest.raises(exc):
         check_supported(cfg)
@@ -173,7 +176,52 @@ def test_the_slice_config_is_supported():
     check_supported(_glow(coupling_impl="fused"))
     check_supported(_glow(chain_impl="all"))
     RFN(_glow(chain_impl="all", coupling_impl="fused"), device="meta")
+    # the flow variants, the running statistics and the other presets
+    for cfg in (_glow(flow_norm="batchnorm"), _glow(base_norm="batchnorm"),
+                _glow(base_norm="none"), _glow(coupling_norm="batchnorm"),
+                _glow(coupling_norm="none"), _glow(lu_decomposed=False),
+                dataclasses.replace(rfn_mnist_production()[0], track_running_stats=True),
+                pconfig.rfn_kth()[0], pconfig.rfn_bair()[0]):
+        check_supported(cfg)
+        RFN(cfg, device="meta")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(dataclasses.replace(
             rfn_mnist_production()[0],
             extractor_structure=((16, "squeeze"),) * 5))
+
+
+@pytest.mark.parametrize("name", ["rfn_mnist_production", "rfn_kth", "rfn_bair"])
+def test_port_presets_match_jax(name):
+    for ours, theirs in zip(getattr(pconfig, name)(), getattr(jconfigs, name)()):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+
+
+def test_from_flax_carries_the_flow_variants_and_batch_stats():
+    """The batch_stats collection (BatchNormFlow [H,W,C], NormLayer [C]), the
+    BatchNormFlow and batch-norm conv parameters, the plain 1x1 weight and
+    the convs' biases land on their port names; without LU there is no
+    'consts' tree, and the running buffers must be given."""
+    cfg = U.tiny_rfn_config(
+        track_running_stats=True,
+        glow=dict(flow_norm="batchnorm", base_norm="batchnorm",
+                  coupling_norm="none", lu_decomposed=False))
+    jm, v = U.jax_rfn_variables(cfg)
+    assert v["consts"] == {} and "batch_stats" in v
+    model = RFN(U.to_port(cfg))
+    state = from_flax(v["params"], v["consts"], model, v["batch_stats"])
+    assert set(state) == set(model.state_dict())
+    bs, p = v["batch_stats"], v["params"]
+    for name, ref in [
+        ("flow.scale0_step0.norm.running_mean", bs["flow"]["scale0_step0"]["norm"]["running_mean"]),
+        ("extractor.b0_1_norm.running_var", bs["extractor"]["b0_1_norm"]["running_var"]),
+        ("flow.scale1_step1.norm.log_gamma", p["flow"]["scale1_step1"]["norm"]["log_gamma"]),
+        ("flow.scale0_step0.invconv.weight", p["flow"]["scale0_step0"]["invconv"]["weight"]),
+        ("flow.scale0_step0.affine.net0.conv.bias",
+         p["flow"]["scale0_step0"]["affine"]["net0"]["conv"]["bias"]),
+        ("flow.prior0.bn_scale", p["flow"]["prior0"]["bn_scale"]),
+        ("flow.prior1.conv.bias", p["flow"]["prior1"]["conv"]["bias"]),
+    ]:
+        assert np.array_equal(state[name].numpy(), np.asarray(ref)), name
+    assert state["flow.scale0_step0.norm.running_mean"].shape == (32, 32, 4)
+    with pytest.raises(KeyError, match="running_mean"):
+        from_flax(v["params"], v["consts"], model)

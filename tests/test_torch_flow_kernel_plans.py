@@ -21,7 +21,8 @@ from recurrent_flows_tpu_torch.flows import modules as tmod
 from recurrent_flows_tpu_torch.ops import (AinvPlan, CouplingPlan, ainv_plan,
                                            coupling_mode, coupling_plan, coupling_transform,
                                            nhwc_view)
-from recurrent_flows_tpu_torch.ops.fused import AINV_MAX_THREADS, N_SMS
+from recurrent_flows_tpu_torch.ops.fused import (AINV_MAX_THREADS, AINV_RGB_WIDTHS, AINV_WIDTHS,
+                                                N_SMS)
 
 # x [B·H·W, C] of the folded actnorm + 1x1 at scales 0-4 of rfn_mnist_production
 SCALES = [(32 >> l, 4 << l) for l in range(5)]
@@ -33,6 +34,16 @@ def _ainv_terms(plan: AinvPlan, rows: int, c: int) -> np.ndarray:
     plan's threads, from the kernel's index math (csrc/actnorm_invconv.cu)."""
     count = np.zeros((rows, c, c), np.int64)
     t = np.arange(plan.threads)
+    if plan.vec == 2:  # tiled: a 4-wide output vector per thread, all c' in chunks
+        col_blocks = -(-c // (4 * plan.groups))
+        for bx in range(plan.blocks // col_blocks):
+            for by in range(col_blocks):
+                row = bx * plan.rows_per_block + t // plan.groups
+                for j in range(4):
+                    d = by * 4 * plan.groups + 4 * (t % plan.groups) + j
+                    live = (row < rows) & (d < c)
+                    count[row[live], d[live], :] += 1
+        return count
     if not plan.vec:  # one thread per output, all c' in a loop
         for bx in range(plan.blocks):
             row, d = bx * plan.rows_per_block + t // c, t % c
@@ -58,7 +69,10 @@ def _ainv_terms(plan: AinvPlan, rows: int, c: int) -> np.ndarray:
 
 def _check_ainv_plan(plan: AinvPlan, rows: int, c: int):
     assert plan.threads <= AINV_MAX_THREADS
-    if plan.vec:
+    if plan.vec == 2:
+        assert c > 64 and plan.lanes == 1 and plan.groups == 8
+        assert plan.threads == plan.rows_per_block * plan.groups and plan.rows_per_block <= 32
+    elif plan.vec:
         assert c % 4 == 0 and (c // 4) % plan.lanes == 0 and plan.lanes in (1, 2, 4)
         assert (c // 4) % plan.groups == 0
         assert plan.threads == plan.rows_per_block * plan.groups * plan.lanes
@@ -83,7 +97,7 @@ def test_ainv_plan_covers_every_term_once(b, hw, c):
 @pytest.mark.parametrize("rows,c", [(7, 2), (50, 6), (50, 7), (50, 48), (1, 1), (33, 64)])
 def test_ainv_plan_at_odd_widths(rows, c):
     plan = ainv_plan(rows, c)
-    assert plan.vec == int(c in (4, 8, 16, 32, 64))
+    assert plan.vec == int(c in AINV_WIDTHS + AINV_RGB_WIDTHS)
     _check_ainv_plan(plan, rows, c)
 
 
@@ -103,8 +117,8 @@ def test_ainv_plan_at_other_row_counts(rows, c):
         _check_ainv_plan(plan, rows, c)
 
 
-@pytest.mark.parametrize("rows,c,match", [(0, 4, "bad shape"), (10, 65, "1 to 64"),
-                                          (10, 0, "1 to 64")])
+@pytest.mark.parametrize("rows,c,match", [(0, 4, "bad shape"), (0, 96, "at least 1 row"),
+                                          (10, 0, "at least 1 row and 1 channel")])
 def test_ainv_plan_raises_on_what_the_kernel_cannot_take(rows, c, match):
     with pytest.raises(ValueError, match=match):
         ainv_plan(rows, c)

@@ -163,6 +163,23 @@ def test_gates_kernel_matches_plain(cuda, b, h, w, hc, offset):
         assert torch.equal(a, a2)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("b", [8, 32, 7])
+def test_gates_kernel_at_kth_and_bair_width(cuda, b, offset):
+    # h = 256 at 4x4: the request's B=8 and the train step's B=32, two
+    # channel blocks
+    hc = 256
+    gates = _randn(cuda, (b, 4, 4, 4 * hc), offset)
+    c = _randn(cuda, (b, 4, 4, hc), offset)
+    peeps = [_randn(cuda, (1, 4, 4, hc), offset, 0.1) for _ in range(3)]
+    got = convlstm_gates(gates, c, *peeps)
+    again = convlstm_gates(gates, c, *peeps)
+    torch.cuda.synchronize()
+    for a, a2, r in zip(got, again, convlstm_gates_ref(gates, c, *peeps)):
+        _close(a, r, 1e-5)
+        assert torch.equal(a, a2)
+
+
 def test_gates_kernel_on_inputs_whose_exponentials_overflow(cuda):
     # |pre-activations| up to ~200: e^-v overflows to inf, 1 + e^-v passes
     # 2^126; sigmoid must give 0 (not NaN) and tanh ±1
@@ -279,6 +296,13 @@ def test_glow_kernels_at_production_shapes(cuda, hw, c, cc, b):
     _step_and_chain_agree(cuda, b, hw, hw, c, cc, 256, k=10)
 
 
+@pytest.mark.parametrize("b", [8, 32])
+@pytest.mark.parametrize("hw,c,cc", [(4, 96, 384),  # rfn_bair scale 3
+                                     (8, 16, 384), (4, 32, 384)])  # rfn_kth scales 2-3
+def test_glow_kernels_at_kth_and_bair_shapes(cuda, hw, c, cc, b):
+    _step_and_chain_agree(cuda, b, hw, hw, c, cc, 256, k=10)
+
+
 @pytest.mark.parametrize("fixed", [dict(cluster_blocks=16), dict(ha_global=False),
                                    dict(ha_global=True, stages=2), dict(im=2),
                                    dict(batch_tile=2, cluster_blocks=4)])
@@ -296,12 +320,16 @@ def test_glow_kernels_under_other_launch_plans(cuda, fixed, monkeypatch):
         module._plan_ints.cache_clear()
 
 
-def _ainv_agrees(cuda, rows, c, offset=0):
+def _ainv_agrees(cuda, rows, c, offset=0, orthogonal=False):
     """The kernel against its plain version on x [rows, c] (starting
-    ``offset`` floats into its buffer), and a second launch bit for bit."""
+    ``offset`` floats into its buffer), and a second launch bit for bit.
+    W is N(0,1), or with ``orthogonal`` an orthogonal matrix, as the flow's
+    1x1 is at init."""
     x = torch.randn(rows * c + offset, generator=cuda, device="cuda")[offset:].view(rows, c)
     bias, logs = (0.3 * torch.randn(c, generator=cuda, device="cuda") for _ in range(2))
     w = torch.randn(c, c, generator=cuda, device="cuda")
+    if orthogonal:
+        w = torch.linalg.qr(w)[0].contiguous()
     n = actnorm_invconv.launches
     y = actnorm_invconv(x, bias, logs, w)
     y2 = actnorm_invconv(x, bias, logs, w)
@@ -314,9 +342,38 @@ def _ainv_agrees(cuda, rows, c, offset=0):
 @pytest.mark.parametrize("rows,c", [(30 * 32 * 32, 4), (1000, 8), (120, 64), (7, 2)])
 def test_actnorm_invconv_kernel_matches_plain(cuda, rows, c):
     _ainv_agrees(cuda, rows, c)
-    with pytest.raises(ValueError, match="at most"):
-        actnorm_invconv(torch.zeros(4, 66, device="cuda"), torch.zeros(66, device="cuda"),
-                        torch.zeros(66, device="cuda"), torch.zeros(66, 66, device="cuda"))
+    # above 64 channels the tiled instance launches; a strided x is refused
+    _ainv_agrees(cuda, 4, 66)
+    x = torch.zeros(4, 2 * c, device="cuda")[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        actnorm_invconv(x, torch.zeros(c, device="cuda"), torch.zeros(c, device="cuda"),
+                        torch.zeros(c, c, device="cuda"))
+
+
+# x [B·H·W, C] above 64 channels: rfn_bair's scale 3 at the train step
+# (32·4·4 rows of 96) and the request (8·4·4), then 128 (gray, L = 6),
+# 192 and 256 (RGB at L = 5, gray at L = 7); ragged row counts, and x one or
+# two floats into its buffer (not 16-byte aligned). W is orthogonal, as the
+# flow's: with an N(0,1) W of 256 columns the outputs' partial sums reach
+# ~16, and float32 sums in two orders (the kernel's, cuBLAS's) differ by
+# ~1.6e-5 at outputs near 0 (measured on the H100), past 1e-5·(1+|ref|)
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("rows", [32 * 16, 8 * 16, 131, 7, 1])
+@pytest.mark.parametrize("c", [96, 128, 192, 256])
+def test_actnorm_invconv_kernel_above_64_channels(cuda, c, rows, offset):
+    # 96 aligned: the compile-time instance; otherwise the tiled one
+    assert ainv_plan(rows, c, aligned=offset == 0).vec == (1 if c == 96 and offset == 0 else 2)
+    _ainv_agrees(cuda, rows, c, offset, orthogonal=True)
+
+
+# x [32·H·W, C] at rfn_bair's four scales (the train step), ragged row
+# counts, and x one float into its buffer (the run-time-width instance)
+@pytest.mark.parametrize("rows,c,offset", [
+    (32 * 1024, 12, 0), (32 * 256, 24, 0), (32 * 64, 48, 0), (32 * 16, 96, 0),
+    (7, 12, 0), (131, 24, 0), (1, 48, 0), (33, 96, 0), (8 * 256, 24, 1), (8 * 64, 48, 1)])
+def test_actnorm_invconv_kernel_at_rgb_widths(cuda, rows, c, offset):
+    assert ainv_plan(rows, c, aligned=offset == 0).vec == (0 if offset else 1)
+    _ainv_agrees(cuda, rows, c, offset, orthogonal=c > 64)
 
 
 # x [30·H·W, C] at the five scales of the train step, and ragged row counts
@@ -383,7 +440,15 @@ def test_gates_function_gradients(cuda):
 
 
 def test_actnorm_invconv_function_gradients(cuda):
-    c = 16
+    _ainv_grads(cuda, 16)
+
+
+@pytest.mark.parametrize("c", [96, 128, 192, 256])
+def test_actnorm_invconv_function_gradients_above_64_channels(cuda, c):
+    _ainv_grads(cuda, c)
+
+
+def _ainv_grads(cuda, c):
     ins = [torch.randn(5, 8, 8, c, generator=cuda, device="cuda"),
            0.3 * torch.randn(c, generator=cuda, device="cuda"),
            0.3 * torch.randn(c, generator=cuda, device="cuda"),

@@ -72,20 +72,39 @@ def jax_rfn_variables(cfg: RFNConfig, seed: int = 0, batch: int = 2,
     model = RFN(cfg, remat=remat)
     x0 = jnp.zeros((batch, 2, cfg.image_size, cfg.image_size, cfg.x_channels))
     v = jax.jit(model.init)(jax.random.key(seed), x0, jax.random.key(seed + 1))
-    return model, {"params": perturb(v["params"], seed), "consts": v["consts"]}
+    out = {"params": perturb(v["params"], seed), "consts": v.get("consts", {})}
+    if "batch_stats" in v:  # running statistics as init leaves them
+        out["batch_stats"] = v["batch_stats"]
+    return model, out
+
+
+def running_stats_like(tree, seed: int):
+    """A batch_stats tree of the same shapes with running means N(0, 0.1²)
+    and running variances e^{N(0, 0.2²)}: off 0/1 and off what an init pass
+    leaves, so that normalising with them differs from normalising with a
+    batch's statistics."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        return {k: walk(a) if isinstance(a, dict) else
+                (0.1 * rng.standard_normal(np.shape(a)) if k == "running_mean" else
+                 np.exp(0.2 * rng.standard_normal(np.shape(a)))).astype(np.float32)
+                for k, a in sorted(t.items())}
+    return walk(tree)
 
 
 def port_from(module: torch.nn.Module, variables) -> torch.nn.Module:
     module.load_state_dict(from_flax(variables["params"],
-                                     variables.get("consts"), module))
+                                     variables.get("consts"), module,
+                                     variables.get("batch_stats")))
     return module
 
 
 # --- noise in the JAX package's order ----------------------------------------
 
 
-def _normal(key, shape):
-    return np.asarray(jax.random.normal(key, shape, jnp.float32))
+def _normal(key, shape, dtype=jnp.float32):
+    return np.asarray(jax.random.normal(key, shape, dtype))
 
 
 def scale_shapes(gcfg: GlowConfig, x_channels: int, image_size: int):
@@ -134,28 +153,29 @@ def rfn_predict_noise(key, cfg: RFNConfig, batch: int, n_conditions: int,
     return eps
 
 
-def _uniform(key, shape, n_bits: int):
-    return np.asarray(jax.random.uniform(key, shape, jnp.float32, 0.0,
+def _uniform(key, shape, n_bits: int, dtype=jnp.float32):
+    return np.asarray(jax.random.uniform(key, shape, dtype, 0.0,
                                          1.0 / 2 ** n_bits))
 
 
-def rfn_loss_noise(key, cfg: RFNConfig, batch: int, t: int):
+def rfn_loss_noise(key, cfg: RFNConfig, batch: int, t: int, dtype=jnp.float32):
     """The draws ``RFN.loss(x, key)`` makes, in the port's order: per frame
     the prior eps, the encoder eps and the dequantization uniform
     (rfn.py:288, :308-310, glow.py:611), then one eps per overshoot depth
-    (rfn.py:424-425)."""
+    (rfn.py:424-425). ``dtype`` float64 gives the draws of a run under
+    ``jax.experimental.enable_x64``."""
     hu = cfg.image_size // (2 ** cfg.L)
     zshape = (batch, hu, hu, cfg.z_dim)
     xshape = (batch, cfg.image_size, cfg.image_size, cfg.x_channels)
     draws = []
     for k in jax.random.split(key, t - 1):
         k1, k2, k3 = jax.random.split(k, 3)
-        draws += [_normal(k1, zshape), _normal(k2, zshape),
-                  _uniform(k3, xshape, cfg.glow.n_bits)]
+        draws += [_normal(k1, zshape, dtype), _normal(k2, zshape, dtype),
+                  _uniform(k3, xshape, cfg.glow.n_bits, dtype)]
     if cfg.D > 0:
         for d in range(min(cfg.D + 1, t - 1)):
             draws.append(_normal(jax.random.fold_in(key, 1000 + d),
-                                 (t - 1 - d,) + zshape))
+                                 (t - 1 - d,) + zshape, dtype))
     return draws
 
 
