@@ -24,8 +24,10 @@ configurations: A the preset as it is, B ``coupling_impl='fused'``, C
    give), the folded 1x1 and the gates (at B=8 and B=30, with the host's
    µs per eager call) also an in-place add over as much data, for all five
    the launch plan of every shape and a second launch that must repeat
-   the first bit for bit; then each kernel's autograd Function against
-   autograd through its plain version;
+   the first bit for bit; the coupling and the folded 1x1 also at the
+   served batch (B=8) of every scale, as ``reconstruct`` and the
+   diagnostics run them, checked and not timed; then each kernel's
+   autograd Function against autograd through its plain version;
 4. serving: warm-up plus 3 requests of 8 sequences through ``Predictor``,
    with the launch count of every kernel per request, then one more
    request under ``torch.profiler`` (device busy time, idle share, device
@@ -51,7 +53,20 @@ configurations: A the preset as it is, B ``coupling_impl='fused'``, C
 10. the batch-norm variant of ``rfn_kth`` (``flow_norm`` and ``base_norm``
     'batchnorm', ``lu_decomposed=False``, ``track_running_stats``): build,
     2 train steps that must move no running buffer, ``refresh_stats`` that
-    must move them, a request with ``eval_norm``, card against CPU.
+    must move them, a request with ``eval_norm``, card against CPU;
+11. RFN's lifecycle at ``rfn_mnist_production``: ``MovingMNIST`` makes 30
+    sequences on the card (device time by the profiler); a ``Trainer`` on
+    it builds and fits 2 epochs of 2 steps (the largest |x| of a flow
+    sample before the build, after it and after fit; launches per step as
+    phase 6's step A; losses, ``status.txt``, ``metrics.jsonl``, the ``last``
+    checkpoint), then the plots' device part; a fresh ``Trainer`` loads
+    ``last`` bit for bit and takes a step; ``Predictor.from_checkpoint``
+    answers 3 requests each of ``predict``, ``reconstruct`` and ``sample``
+    with exact launch counts and one profiled ``reconstruct``; then
+    ``reconstruct``, ``sample`` and ``probability_future`` card against
+    CPU (each element within a tolerance times 1 + its |ref|), and the
+    diagnostics (``param_analysis``, ``probability_future``,
+    ``reconstruct_elbo_gap``) on the card with exact launch counts.
 
 Any failure raises and the script exits non-zero. The last two lines of
 standard output are the kernels' JSON record (with each kernel's launches
@@ -109,8 +124,23 @@ TOL_LATER_FRAMES = 1e-2
 # are 1e-3 and 1e-2 of 1 + 15
 TOL_FIRST_FRAME_REL = TOL_FIRST_FRAME / 16
 TOL_LATER_FRAMES_REL = TOL_LATER_FRAMES / 16
+# phase 11, card vs CPU of the fitted rfn_mnist_production model: each
+# element within tol·(1+|ref|), for an output that passes the flow once
+# (recons, the first sampled frame) and one that passes it twice
+# (recons_flow, the second sampled frame). The data-dependent init makes a
+# flow sample reach |x| ~100-220 where phase 5's random model stays under
+# ~16, and the card-vs-CPU difference grows with it (7.2e-6 to 1.3e-5 of
+# 1 + max|x| over five fits, phase 5's 6.7e-6); elementwise it was
+# 3.0e-4 to 7.0e-4 where the flow is passed once and up to 5.0e-3 where
+# twice (scripts/torch_lifecycle_card_vs_cpu.py and this script). Twice
+# phase 5's absolute tolerances hold them with a margin of 3-4x
+TOL_LIFE_ONCE = 2 * TOL_FIRST_FRAME
+TOL_LIFE_TWICE = 2 * TOL_LATER_FRAMES
 
 BATCH, N_COND, N_PRED, N_REQUESTS = 8, 5, 10, 3
+# phase 11: epochs and steps of fit; frames a reconstruct request takes and
+# a sample request makes
+FIT_EPOCHS, FIT_STEPS, LIFE_FRAMES = 2, 2, 10
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS_A = 30, 10, 3
 # published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
 # and the float32 rate outside the tensor cores
@@ -197,14 +227,21 @@ def launch_floor_ms() -> float:
     return small_ms(lambda: one.add_(1.0))
 
 
-def coupling_cases(rnd):
-    """([B, H, W, C/2], reverse, (z2, shift, s)) of the coupling tail at the
-    serving request (reverse, z2 [8,32,32,2]) and at every scale of the
-    train step (forward, [30,H,W,C/2]): the 'split' half of x and the
+# (B, H = W, C/2, reverse) of the coupling tail timed in phase 3: the
+# serving request (reverse, z2 [8,32,32,2]) and every scale of the train
+# step (forward, [30,H,W,C/2])
+COUPLING_TIMED = [(BATCH, 32, 2, True)] + [(TRAIN_BATCH, hw, c // 2, False)
+                                           for hw, c in FLOW_SCALES]
+# checked in both directions but not timed: the served batch at scales 1-4,
+# where reconstruct and the diagnostics run log_prob (forward) on B=8
+COUPLING_CHECKED = [(BATCH, hw, c // 2, False) for hw, c in FLOW_SCALES[1:]]
+
+
+def coupling_cases(rnd, shapes):
+    """([B, H, W, C/2], reverse, (z2, shift, s)) of the coupling tail at
+    ``shapes`` (B, H = W, C/2, reverse): the 'split' half of x and the
     'cross' halves of the coupling net's output, as AffineCoupling passes
     them; ``rnd(*shape, scale=)`` draws the data."""
-    shapes = [(BATCH, 32, 2, True)] + [(TRAIN_BATCH, hw, c // 2, False)
-                                       for hw, c in FLOW_SCALES]
     for b, hw, ch, rev in shapes:
         x, h = rnd(b, hw, hw, 2 * ch), rnd(b, hw, hw, 2 * ch, scale=0.5)
         yield [b, hw, hw, ch], rev, (x[..., ch:], h[..., 0::2], torch.tanh(h[..., 1::2]))
@@ -416,12 +453,9 @@ def check_kernels(model, record):
     record["launch_floor_ms"] = floor = launch_floor_ms()
     print(f"launch floor (in-place add on one element): {floor:.5f} ms")
 
-    # coupling tail at the request's shape and every train-step scale, on
-    # the views AffineCoupling passes; times summed over the six shapes
-    if [(hw, c) for hw, c, _ in scales] != FLOW_SCALES:
-        raise AssertionError(f"the flow's scales {scales} are not {FLOW_SCALES}")
-    worst, t = 0.0, dict(ms=0.0, plain_ms=0.0, n_bytes=0, flops=0)
-    for shape, rev, (z2, shift, s) in coupling_cases(rnd):
+    def check_coupling(shape, z2, shift, s, rev):
+        """Both directions against the plain version, the views against
+        their contiguous copies, a repeat; returns (err, plan, mode)."""
         b, hh, ww, ch = shape
         plan = coupling_plan(b, hh * ww * ch)
         mode = coupling_mode(ch, hh * ww * ch, [(v.data_ptr(), *nhwc_view("v", v))
@@ -440,6 +474,16 @@ def check_kernels(model, record):
                                      "views and their contiguous copies give other results")
         check_repeats(f"coupling_transform {shape}",
                       lambda: coupling_transform(z2, shift, s, rev))
+        return e, plan, mode
+
+    # coupling tail at the request's shape and every train-step scale, on
+    # the views AffineCoupling passes; times summed over the six shapes
+    if [(hw, c) for hw, c, _ in scales] != FLOW_SCALES:
+        raise AssertionError(f"the flow's scales {scales} are not {FLOW_SCALES}")
+    worst, t = 0.0, dict(ms=0.0, plain_ms=0.0, n_bytes=0, flops=0)
+    for shape, rev, (z2, shift, s) in coupling_cases(rnd, COUPLING_TIMED):
+        b = shape[0]
+        e, plan, mode = check_coupling(shape, z2, shift, s, rev)
         worst = max(worst, e)
         row = dict(shape=shape, reverse=rev, plan=plan._asdict(), mode=mode, err=e,
                    **coupling_times(coupling_transform, z2, shift, s, rev),
@@ -456,8 +500,16 @@ def check_kernels(model, record):
               f"bound {row['bound_ms']:.6f} ({row['bound_by']})")
         for k in t:
             t[k] += row[k]
+    for shape, rev, (z2, shift, s) in coupling_cases(rnd, COUPLING_CHECKED):
+        e, plan, mode = check_coupling(shape, z2, shift, s, rev)
+        worst = max(worst, e)
+        record["served_batch_checks"].append(dict(
+            kernel="coupling_transform", shape=shape, plan=plan._asdict(), mode=mode, err=e))
+        print(f"coupling_transform z2 {shape} (checked, not timed): plan {plan.blocks} "
+              f"blocks of {plan.threads} threads, mode {mode}; err {e:.3e}")
     rows = record["coupling_transform"]
-    print(f"coupling_transform: {len(rows)} shapes, both directions, err {worst:.3e}")
+    print(f"coupling_transform: {len(rows)} shapes timed and {len(COUPLING_CHECKED)} "
+          f"checked, both directions, err {worst:.3e}")
     # ms, plain_ms and bound_ms are sums over `shapes`; request_ms is the
     # serving request's shape alone, the one shape timed before the train
     # shapes were
@@ -540,6 +592,26 @@ def check_kernels(model, record):
                   f"bound {row['bound_ms']:.6f} ({row['bound_by']})")
             for k in t:
                 t[k] += row[k]
+        # the served batch (B=8) at every scale, as reconstruct and the
+        # diagnostics run it through log_prob: checked, not timed
+        for l, (hw, c, _) in enumerate(scales):
+            step = flow.step(l, 0)
+            x = rnd(BATCH, hw, hw, c)
+            bias, logs = step.norm.bias.detach(), step.norm.logs.detach()
+            w = step.invconv.matrix(False).contiguous()
+            name = f"actnorm_invconv scale {l} B={BATCH}"
+            e = check_elementwise(name, (actnorm_invconv(x, bias, logs, w),),
+                                  (actnorm_invconv_ref(x, bias, logs, w),), (TOL_INVCONV,))
+            worst = max(worst, e)
+            check_repeats(name, lambda: (actnorm_invconv(x, bias, logs, w),))
+            plan = ainv_plan(BATCH * hw * hw, c)
+            record["served_batch_checks"].append(dict(
+                kernel="actnorm_invconv", scale=l, shape=[BATCH * hw * hw, c],
+                plan=plan._asdict(), err=e))
+            print(f"actnorm_invconv scale {l} x{[BATCH * hw * hw, c]} (checked, not timed): "
+                  f"plan {plan.blocks} blocks of {plan.threads} threads "
+                  f"({plan.rows_per_block} rows x {plan.groups} output vectors, "
+                  f"{plan.lanes} lanes each), err {e:.3e}")
     # every time a sum over `shapes`, the five scales of the train step
     kernels["actnorm_invconv"] = dict(
         max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
@@ -1285,6 +1357,317 @@ def kth_batchnorm(rng, record, card):
     return launches
 
 
+def reconstruct_launches(mcfg, chain_scales, frames: int) -> dict:
+    """Launches of one reconstruct over ``frames`` frames: the h-LSTM once
+    per frame but the last; per reconstructed frame the forward log_prob
+    (every scale on the module path: L·K folded 1x1s and coupling tails)
+    and two reverses (recons_flow given z, recons from the base), each one
+    glowchain per chain scale and K coupling tails per other scale."""
+    steps = frames - 1
+    reverse_coupling = mcfg.K * (mcfg.L - len(chain_scales))
+    return dict(actnorm_invconv=steps * mcfg.L * mcfg.K, convlstm_gates=steps,
+                coupling_transform=steps * (mcfg.L * mcfg.K + 2 * reverse_coupling),
+                glowchain=steps * 2 * len(chain_scales), glowstep=0)
+
+
+def sample_launches(mcfg, chain_scales, frames: int) -> dict:
+    """Launches of one sample request of ``frames`` frames: per frame the
+    LSTM once and one reverse flow."""
+    return dict(actnorm_invconv=0, convlstm_gates=frames,
+                coupling_transform=frames * mcfg.K * (mcfg.L - len(chain_scales)),
+                glowchain=frames * len(chain_scales), glowstep=0)
+
+
+def diagnostics_launches(mcfg, chain_scales, frames: int, n_cond: int) -> dict:
+    """Launches of param_analysis and reconstruct_elbo_gap over ``frames``
+    frames and probability_future with ``n_cond`` context frames: each
+    scans the h-LSTM over its frames but the last; per frame
+    param_analysis samples once, reconstruct_elbo_gap takes the forward
+    log_prob and two reverses for each of the two latents, and
+    probability_future takes the forward log_prob of each future frame
+    for each latent."""
+    steps = frames - 1
+    fwd = mcfg.L * mcfg.K
+    rev = mcfg.K * (mcfg.L - len(chain_scales))
+    chains = len(chain_scales)
+    futures = frames - n_cond
+    return dict(
+        actnorm_invconv=steps * 2 * fwd + 2 * futures * fwd,
+        convlstm_gates=2 * steps + n_cond - 1,
+        coupling_transform=steps * rev + steps * 2 * (fwd + 2 * rev) + 2 * futures * fwd,
+        glowchain=steps * chains + steps * 2 * 2 * chains, glowstep=0)
+
+
+def counted(label, fn, want):
+    """Call ``fn`` and check the launches it made against ``want``."""
+    from recurrent_flows_tpu_torch import ops
+
+    before = ops.launch_counts()
+    out = fn()
+    counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    return out
+
+
+def check_frames(label, out, shape):
+    if out.shape != shape:
+        raise AssertionError(f"{label}: output shape {out.shape}, expected {shape}")
+    if not np.isfinite(out).all() or out.min() < 0.0 or out.max() > 1.0:
+        raise AssertionError(f"{label}: output not finite in [0, 1]")
+
+
+def sample_max(model, x) -> float:
+    """Largest |x| in model space of a 2-frame ``RFN.sample`` seeded by
+    frame 0 of x, on fixed noise."""
+    from recurrent_flows_tpu_torch.utils import NoiseSource
+
+    noise = NoiseSource(generator=torch.Generator(device=x.device).manual_seed(5))
+    return model.sample(x, 2, noise).abs().max().item()
+
+
+def lifecycle_card_vs_cpu(model, rng) -> dict:
+    """``reconstruct``, ``sample`` (2 frames) and ``probability_future``
+    (2 context frames) of a model on the card against its CPU copy, with
+    the same injected noise, on 2 sequences of 3 frames of moving squares:
+    per output {max_abs_err, rel_err (the largest |err|/(1+|ref|) over
+    elements), max_abs_ref}; the sample per frame (sample0, sample1)."""
+    from recurrent_flows_tpu_torch.utils import NoiseSource
+
+    cpu_model = copy.deepcopy(model).cpu()
+    x = torch.tensor(moving_squares(rng, 2, 3, model.cfg.image_size) - 0.5)
+    errs = {}
+    for name, fn in (("reconstruct", lambda m, xx, n: m.reconstruct(xx, n)),
+                     ("sample", lambda m, xx, n: (m.sample(xx, 2, n),)),
+                     ("probability_future", lambda m, xx, n: (m.probability_future(xx, 2, n),))):
+        rec = RecordedNoise(NoiseSource(generator=torch.Generator().manual_seed(11)))
+        ref = fn(cpu_model, x, rec)
+        got = [g.cpu() for g in fn(model, x.cuda(), NoiseSource(replay=rec.draws))]
+        if name == "reconstruct":
+            pairs = dict(zip(("recons", "recons_flow"), zip(got, ref)))
+        elif name == "sample":
+            pairs = {f"sample{i}": (got[0][i], ref[0][i]) for i in range(2)}
+        else:
+            pairs = {name: (got[0], ref[0])}
+        for key, (g, r) in pairs.items():
+            errs[key] = dict(zip(("max_abs_err", "rel_err"), rel_err(g, r)),
+                             max_abs_ref=r.abs().max().item())
+    return errs
+
+
+def lifecycle(rng, record, card):
+    """Phase 11: RFN's lifecycle at rfn_mnist_production, on the card's
+    Moving MNIST (see the module docstring). Returns {path: launches}."""
+    import shutil
+
+    from recurrent_flows_tpu_torch import ops
+    from recurrent_flows_tpu_torch.config import rfn_mnist_production
+    from recurrent_flows_tpu_torch.data import MovingMNIST
+    from recurrent_flows_tpu_torch.models import RFN
+    from recurrent_flows_tpu_torch.serving import Predictor
+    from recurrent_flows_tpu_torch.training import Trainer
+    from recurrent_flows_tpu_torch.utils import NoiseSource
+
+    mcfg, tcfg = rfn_mnist_production()
+    mcfg = with_glow(mcfg, chain_impl="sample")
+    tcfg = dataclasses.replace(tcfg, steps_per_epoch=FIT_STEPS)
+    chain_scales = range(1, mcfg.L)
+    paths = {}
+
+    # the data, made on the card
+    data = MovingMNIST(digit_bank="synthetic", digit_size=32, num_digits=2,
+                       seq_len=tcfg.n_frames)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = data.sample(gen, tcfg.batch_size)
+    shape = (tcfg.batch_size, tcfg.n_frames, mcfg.image_size, mcfg.image_size, 1)
+    if not (batch.is_cuda and tuple(batch.shape) == shape and batch.min() >= 0.0
+            and batch.max() <= 1.0 and batch.max() > 0.5):
+        raise AssertionError(f"MovingMNIST: batch on {batch.device}, shape "
+                             f"{tuple(batch.shape)}, range [{batch.min()}, {batch.max()}]")
+    host_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        data.sample(gen, tcfg.batch_size)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_call(lambda: data.sample(gen, tcfg.batch_size), statistics.median(host_ms))
+    record["moving_mnist"] = dict(host_ms=host_ms, device_busy_ms=prof["device_busy_ms"],
+                                  n_kernels=prof["n_kernels"])
+    print(f"MovingMNIST: {tcfg.batch_size} sequences of {tcfg.n_frames} frames on the "
+          f"card, median {statistics.median(host_ms):.2f} ms, device busy "
+          f"{prof['device_busy_ms']:.3f} ms in {prof['n_kernels']} kernels")
+
+    # fit: build, 2 epochs of 2 steps, the checkpoint 'last', status
+    workdir = ROOT / "runs" / "chip_smoke_lifecycle"
+    shutil.rmtree(workdir, ignore_errors=True)
+    model = RFN(mcfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    perturb_(model, seed=1)
+    trainer = Trainer(model, tcfg, data, str(workdir))
+    # the size of a flow sample in model space (data in [-0.5, 0.5]) on the
+    # perturbed random weights, after the data-dependent init, after fit
+    xm = trainer._to_model_space(data.sample(gen, BATCH))
+    magnitude = {"random": sample_max(model, xm)}
+    t0 = time.perf_counter()
+    trainer.build()
+    torch.cuda.synchronize()
+    print(f"fit: build with data-dependent init {time.perf_counter() - t0:.2f} s")
+    magnitude["after_init"] = sample_max(model, xm)
+    want = train_launches(mcfg, "A", True, tcfg.n_frames - 1, ())
+    step = trainer.train_step
+    trainer.train_step = lambda *a, **k: counted("fit step", lambda: step(*a, **k), want)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(n_epochs=FIT_EPOCHS, plot=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    paths["mnist_fit"] = ops.launch_counts()
+    del trainer.train_step
+    folder = workdir / "model_folder"
+    n_steps = FIT_EPOCHS * FIT_STEPS
+    status = (folder / "status.txt").read_text().splitlines()
+    metrics = [json.loads(r) for r in (folder / "metrics.jsonl").read_text().splitlines()]
+    saved = sorted(p.name for p in (folder / "last").iterdir())
+    if not (len(trainer.losses) == n_steps and np.isfinite(trainer.losses).all()
+            and len(status) == len(metrics) == FIT_EPOCHS and saved == ["meta.json", "state.pt"]
+            and paths["mnist_fit"] == {k: n_steps * v for k, v in want.items()}):
+        raise AssertionError(f"fit: losses {trainer.losses}, {len(status)} status lines, "
+                             f"{len(metrics)} records, last holds {saved}, "
+                             f"launches {paths['mnist_fit']}")
+    print(f"fit: {FIT_EPOCHS} epochs of {FIT_STEPS} steps in {fit_s:.1f} s, losses "
+          f"{[round(v, 2) for v in trainer.losses]}, launches per step {want}; "
+          f"status: {status[-1]}")
+    record["fit"] = dict(seconds=fit_s, losses=trainer.losses, status=status,
+                         steps_per_s=metrics[-1]["step_stats"].get("steps_per_s"))
+    t0 = time.perf_counter()
+    rows = trainer.plot_rows()
+    torch.cuda.synchronize()
+    lengths = {"true": tcfg.n_frames, "sample|frame0": tcfg.n_frames,
+               "prediction": tcfg.n_conditions + tcfg.n_predictions,
+               "recon": tcfg.n_frames - 1, "recon-bijection": tcfg.n_frames - 1}
+    for name, arr in rows:
+        if arr.dtype != np.uint8 or arr.shape != (lengths[name],) + shape[:1] + shape[2:]:
+            raise AssertionError(f"plot rows: {name} {arr.dtype} {arr.shape}")
+    print(f"plot rows (predict, reconstruct, sample of {tcfg.batch_size}): "
+          f"{time.perf_counter() - t0:.2f} s, {[n for n, _ in rows]}")
+
+    # load into a fresh trainer: bit for bit, then one more step
+    fresh = Trainer(RFN(mcfg, device="cuda", generator=torch.Generator().manual_seed(7)),
+                    tcfg, data, str(workdir)).load("last")
+    a, b = trainer.model.state_dict(), fresh.model.state_dict()
+    sa, sb = trainer.optimizer.state_dict()["state"], fresh.optimizer.state_dict()["state"]
+    unequal = [n for n in a if not torch.equal(a[n], b[n])]
+    unequal += [f"adam {i} {k}" for i in sa for k in sa[i]
+                if not torch.equal(sa[i][k].cpu(), sb[i][k].cpu())]
+    unequal += [attr for attr in ("counter", "epoch_i", "losses", "kl_hist", "recon_hist",
+                                  "bits_hist", "best_loss")
+                if getattr(trainer, attr) != getattr(fresh, attr)]
+    if unequal or len(sa) != len(sb) or not sa:
+        raise AssertionError(f"load: differs from the saved trainer in {unequal[:8]}")
+    m = {k: float(v) for k, v in fresh.train_step(data.sample(gen, tcfg.batch_size),
+                                                  tcfg.beta_min, tcfg.learning_rate).items()}
+    if not all(np.isfinite(v) for v in m.values()):
+        raise AssertionError(f"load: the step after loading is not finite: {m}")
+    magnitude["after_fit"] = sample_max(trainer.model, xm)
+    record["sample_max_abs"] = magnitude
+    print(f"largest |x| of a 2-frame sample of {BATCH} in model space: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in magnitude.items()))
+    print(f"load: {len(a)} tensors and {len(sa)} Adam states bit-equal, counter "
+          f"{fresh.counter}; the next step's loss {m['loss']:.1f}")
+    del trainer, fresh, model
+    torch.cuda.empty_cache()
+
+    # serving from the checkpoint
+    pred = Predictor.from_checkpoint(str(folder / "last"), n_conditions=N_COND,
+                                     n_predictions=N_PRED)
+    pred.warmup(batch_size=BATCH)
+    frames = lambda t: data.sample(gen, BATCH)[:, :t].cpu().numpy()
+    img = (mcfg.image_size, mcfg.image_size, 1)
+    endpoints = {
+        "predict": (lambda x: pred.predict(x), N_COND,
+                    request_launches(mcfg, chain_scales, N_COND), (BATCH, N_PRED) + img),
+        "reconstruct": (lambda x: pred.reconstruct(x), LIFE_FRAMES,
+                        reconstruct_launches(mcfg, chain_scales, LIFE_FRAMES),
+                        (BATCH, LIFE_FRAMES - 1) + img),
+        "sample": (lambda x: pred.sample(x[:, 0], LIFE_FRAMES), 1,
+                   sample_launches(mcfg, chain_scales, LIFE_FRAMES),
+                   (BATCH, LIFE_FRAMES) + img)}
+    record["serve"] = {}
+    for name, (call, t, want, out_shape) in endpoints.items():
+        ops.reset_launch_counts()
+        times = []
+        for i in range(N_REQUESTS):
+            x = frames(t)
+            t0 = time.perf_counter()
+            out = counted(f"{name} request {i}", lambda: call(x), want)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check_frames(f"{name} request {i}", out, out_shape)
+        paths[f"mnist_{name}"] = ops.launch_counts()
+        med = statistics.median(times)
+        record["serve"][name] = dict(ms=times, median_ms=med, launches_per_request=want)
+        print(f"checkpoint {name}: median {med:.1f} ms per request of {BATCH} "
+              f"({times}), launches {want}")
+    x = frames(LIFE_FRAMES)
+    prof = profile_call(lambda: pred.reconstruct(x), record["serve"]["reconstruct"]["median_ms"])
+    record["serve"]["reconstruct"]["profile"] = prof
+    print_profile("reconstruct request", prof)
+    missing = [k for k in ("convlstm_gates", "actnorm_invconv", "coupling_transform",
+                           "glowchain") if paths["mnist_reconstruct"][k] == 0]
+    if missing:
+        raise AssertionError(f"reconstruct never launched {missing}")
+
+    # card against CPU, the same weights and injected noise, each element
+    # against 1 + its |ref| (TOL_LIFE_*): recons and the first sampled frame
+    # pass the flow once, as the first predicted frame does; recons_flow
+    # passes it twice (log_prob, then the reverse), the second sampled frame
+    # feeds the first back; probability_future as the train step's loss
+    model = pred.model
+    tol = dict(recons=TOL_LIFE_ONCE, recons_flow=TOL_LIFE_TWICE,
+               sample0=TOL_LIFE_ONCE, sample1=TOL_LIFE_TWICE,
+               probability_future=TOL_STEP_LOSS)
+    errs = lifecycle_card_vs_cpu(model, rng)
+    for key, v in errs.items():
+        v["limit"] = tol[key]
+    bad = {k: v for k, v in errs.items() if not v["rel_err"] <= v["limit"]}
+    print("card vs CPU (max |err|; max |err|/(1+|ref|) and its limit; max |ref|): "
+          + ", ".join(f"{k} {v['max_abs_err']:.2e}; {v['rel_err']:.2e} ({v['limit']:.0e}); "
+                      f"{v['max_abs_ref']:.1f}" for k, v in errs.items()))
+    record["card_vs_cpu"] = errs
+    if bad:
+        raise AssertionError(f"card and CPU disagree: {bad}")
+
+    # the diagnostics on the card
+    xb = pred._to_model_space(frames(LIFE_FRAMES))
+    noise = NoiseSource(generator=gen)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pa = model.param_analysis(xb, noise)
+    pf = model.probability_future(xb, N_COND, noise)
+    gap = model.reconstruct_elbo_gap(xb, noise)
+    torch.cuda.synchronize()
+    diag_s = time.perf_counter() - t0
+    paths["mnist_diagnostics"] = ops.launch_counts()
+    want = diagnostics_launches(mcfg, chain_scales, LIFE_FRAMES, N_COND)
+    t1 = LIFE_FRAMES - 1
+    shapes = {"mu_p": (t1, BATCH, 2, 2, mcfg.z_dim), "std_flow": (t1, BATCH, 2, 2, 64),
+              "predictions": (t1, BATCH) + img, "probability_future":
+              (BATCH, 2, LIFE_FRAMES - N_COND), "recons": (t1, 2, BATCH) + img,
+              "kld": (t1, BATCH), "nll": (2, t1, BATCH)}
+    got = dict(mu_p=pa["mu_p"], std_flow=pa["std_flow"], predictions=pa["predictions"],
+               probability_future=pf, recons=gap[0], kld=gap[2], nll=gap[3])
+    bad = {k: tuple(v.shape) for k, v in got.items()
+           if tuple(v.shape) != shapes[k] or not torch.isfinite(v).all()}
+    if bad or paths["mnist_diagnostics"] != want:
+        raise AssertionError(f"diagnostics: shapes or values {bad}; launches "
+                             f"{paths['mnist_diagnostics']}, expected {want}")
+    print(f"diagnostics (param_analysis, probability_future, reconstruct_elbo_gap) "
+          f"of {BATCH} sequences of {LIFE_FRAMES} frames: {diag_s:.2f} s, launches {want}")
+    record["diagnostics_s"] = diag_s
+    del pred, model
+    torch.cuda.empty_cache()
+    return paths
+
+
 SOURCES = {
     "coupling_transform": ("cuda", "recurrent_flows_tpu_torch/csrc/coupling.cu",
                            "recurrent_flows_tpu/ops/pallas/fused.py:75"),
@@ -1315,7 +1698,8 @@ def main() -> None:
                   torch=torch.__version__, cuda=torch.version.cuda,
                   glowchain_checks=[], glowchain_ms=[], glowchain_train_ms=[],
                   glowstep_checks=[], glowstep_ms=[], actnorm_invconv=[],
-                  coupling_transform=[], convlstm_gates=[], launch_plans=[])
+                  coupling_transform=[], convlstm_gates=[], launch_plans=[],
+                  served_batch_checks=[])
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -1360,6 +1744,9 @@ def main() -> None:
     record["kth_batchnorm"] = {}
     paths.update(kth_batchnorm(rng, record["kth_batchnorm"], card))
     print(f"rfn_kth batchnorm variant done at {time.perf_counter() - t_start:.0f} s")
+    record["lifecycle"] = {}
+    paths.update(lifecycle(rng, record["lifecycle"], card))
+    print(f"lifecycle done at {time.perf_counter() - t_start:.0f} s")
 
     launches = {name: sum(p[name] for p in paths.values()) for name in SOURCES}
     never = [name for name in SOURCES if launches[name] == 0]

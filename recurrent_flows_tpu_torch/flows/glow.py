@@ -302,10 +302,18 @@ class ListGlow(nn.Module):
 
     def sample(self, conditions, base_condition, noise,
                temperature: float = 0.8, chain: dict | None = None,
-               training: bool = True):
-        """Draw x: z from the base prior at ``temperature``, then ``g``.
-        Draws the base eps first, then the split eps."""
-        mean, log_scale = self.base_params(base_condition,
-                                           base_condition.shape[0])
-        z = mean + torch.exp(log_scale) * temperature * noise.normal(mean)
-        return self.g(z, conditions, noise, temperature, chain, training)
+               training: bool = True, z=None, eval_params: bool = False):
+        """Draw x: z from the base prior at ``temperature`` (the base eps
+        first), then ``g`` (the split eps). With ``z`` given, ``g`` maps it
+        and no base eps is drawn (the JAX package splits a key for it and
+        never uses it). With ``eval_params`` returns (x, (mean, std)) of the
+        base distribution."""
+        if z is None or eval_params:
+            mean, log_scale = self.base_params(base_condition,
+                                               base_condition.shape[0])
+        if z is None:
+            z = mean + torch.exp(log_scale) * temperature * noise.normal(mean)
+        x = self.g(z, conditions, noise, temperature, chain, training)
+        if eval_params:
+            return x, (mean, torch.exp(log_scale))
+        return x

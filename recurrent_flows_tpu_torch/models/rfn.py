@@ -1,29 +1,48 @@
 """RFN, the recurrent flow network, the counterpart of
 ``recurrent_flows_tpu.models.rfn``.
 
-Two programs are ported. The autoregressive rollout: ``predict`` (warm-up
-over the context frames, then per frame extractor -> ConvLSTM -> prior ->
-upscaler -> ``ListGlow.sample``). The training objective: ``loss`` (one
-extractor call over all frames, the h-LSTM and the optional reverse
-a-LSTM, then per frame encoder, prior, KL, upscaler and
-``ListGlow.log_prob``), with ``ddi`` for the data-dependent init.
+The autoregressive rollout ``predict`` (warm-up over the context frames,
+then per frame extractor -> ConvLSTM -> prior -> upscaler ->
+``ListGlow.sample``) and the free-running ``sample`` from frame 0. The
+training objective ``loss`` (one extractor call over all frames, the
+h-LSTM and the optional reverse a-LSTM, then per frame encoder, prior, KL,
+upscaler and ``ListGlow.log_prob``), with ``ddi`` for the data-dependent
+init. ``reconstruct`` (posterior reconstructions and the flow's x -> z ->
+x), the diagnostics ``param_analysis``, ``probability_future`` and
+``reconstruct_elbo_gap`` over the shared posterior/prior scan, and the
+interpolation API ``get_zt_ht_from_seq`` / ``predicts_from_zt_ht``.
 ``init_running_stats`` and ``stats_refresh`` are the passes that update
 running statistics (``flow_norm='batchnorm'``, ``track_running_stats``);
 ``eval_norm`` normalises the feature nets with them.
-``reconstruct``, ``sample`` and the diagnostics come later (ROADMAP.md
-queue 1).
 
 The frameworks cannot share a PRNG, so every draw goes through a
 :class:`~recurrent_flows_tpu_torch.utils.numerics.NoiseSource`, in the
-JAX package's order. ``predict``: per warm-up step the prior eps then the
-encoder eps (drawn even though ``predict`` never uses it); per predicted
-frame the prior eps, the flow's base eps, then one eps per split, scale
-L-2 first. ``loss``: per frame the prior eps, the encoder eps and the
-dequantization uniform, then one eps per overshoot depth; all are drawn
-before the per-frame steps run, so a step recomputed in the backward
-sees the draws of its forward. ``ddi`` and ``stats_refresh``: the encoder
-eps, then the dequantization uniform. ``init_running_stats``: the
-dequantization uniform.
+JAX package's order. A flow sample draws the base eps, then one eps per
+split, scale L-2 first; given z it draws the split eps only.
+
+* the posterior scan (``predict``'s warm-up and the diagnostics): per
+  step the prior eps, then the encoder eps;
+* ``predict``: the scan over the context frames; per predicted frame the
+  prior eps, then a flow sample;
+* ``sample``: per frame the prior eps, then a flow sample;
+* ``reconstruct``: per frame the encoder eps, the dequantization
+  uniform, the split eps of ``recons_flow`` (x -> z -> x), then a flow
+  sample for ``recons``;
+* ``param_analysis``: the scan over all frames, then a flow sample per
+  frame;
+* ``probability_future``: the scan over the context frames, then one
+  dequantization uniform per future frame, which the prior and the
+  posterior latent share, as in the JAX package;
+* ``reconstruct_elbo_gap``: the scan over all frames, then per frame and
+  latent (prior, posterior) the dequantization uniform and, with
+  ``sample``, the split eps of ``recons_flow`` and a flow sample;
+* ``get_zt_ht_from_seq``: the scan; ``predicts_from_zt_ht``: a flow sample;
+* ``loss``: per frame the prior eps, the encoder eps and the
+  dequantization uniform, then one eps per overshoot depth; all are drawn
+  before the per-frame steps run, so a step recomputed in the backward
+  sees the draws of its forward;
+* ``ddi`` and ``stats_refresh``: the encoder eps, then the dequantization
+  uniform; ``init_running_stats``: the dequantization uniform.
 """
 
 from __future__ import annotations
@@ -158,21 +177,32 @@ class RFN(nn.Module):
             conds = list(skips_prev)
         return conds, hz
 
-    def _unroll_a(self, hs, f_last, a0, ca0):
-        """Reverse smoothing a-LSTM: a_j from [h_j, feat_{j+1}]."""
-        as_, _, _ = conv_lstm_scan(self.a_lstm, torch.cat([hs, f_last[1:]], -1),
-                                   a0, ca0, reverse=True)
-        return as_
+    def _unroll(self, x):
+        """Features of x [B, T, H, W, C] and the recurrent states over them:
+        (feats, f_last, hs [T-1, ...], the h-LSTM's last (h, c), as_ or
+        None). hs[t] is the state after frames 0..t; as_[t] the smoothing
+        a-LSTM's, scanned backward from the last frame."""
+        cfg = self.cfg
+        feats, f_last = self._features(x)
+        h0, c0, a0, ca0, _, _ = self.get_inits(x.shape[0])
+        hs, h_t, c_t = conv_lstm_scan(self.lstm, f_last[:-1], h0, c0)
+        as_ = None
+        if cfg.enable_smoothing:
+            as_, _, _ = conv_lstm_scan(self.a_lstm, torch.cat([hs, f_last[1:]], -1),
+                                       a0, ca0, reverse=True)
+        return feats, f_last, hs, (h_t, c_t), as_
+
+    def _encode(self, ht, at, feat_t, zxprev):
+        """The encoder's (mean, std) before the residual posterior."""
+        if self.cfg.enable_smoothing:
+            return self._enc_net(torch.cat([at, zxprev], -1))
+        return self._enc_net(torch.cat([ht, zxprev, feat_t], -1))
 
     def _posterior_prior(self, ht, at, feat_t, zprev, zxprev):
         """Encoder and prior parameters of one step: (enc_mean, enc_std,
         prior_mean, prior_std), with the residual posterior under res_q."""
         cfg = self.cfg
-        if cfg.enable_smoothing:
-            enc_in = torch.cat([at, zxprev], -1)
-        else:
-            enc_in = torch.cat([ht, zxprev, feat_t], -1)
-        enc_mean, enc_std = self._enc_net(enc_in)
+        enc_mean, enc_std = self._encode(ht, at, feat_t, zxprev)
         if cfg.res_q:
             prior_mean, prior_std = self._prior_net(torch.cat([ht, zxprev], -1))
             enc_mean = prior_mean + enc_mean
@@ -189,14 +219,11 @@ class RFN(nn.Module):
         feats, f_last = self._features(x[:, :2])
         h0, c0, a0, ca0, _, z0x = self.get_inits(b)
         ht, _ = self.lstm(f_last[0], h0, c0)
+        at = None
         if cfg.enable_smoothing:
             at, _ = self.a_lstm(torch.cat([ht, f_last[1]], -1), a0, ca0)
-            enc_in = torch.cat([at, z0x], -1)
-        else:
-            enc_in = torch.cat([ht, z0x, f_last[1]], -1)
-        enc_mean, enc_std = self._enc_net(enc_in)
-        skips_prev = [f[0] for f in feats] if feats is not None else None
-        return ht, skips_prev, enc_mean, enc_std
+        enc_mean, enc_std = self._encode(ht, at, f_last[1], z0x)
+        return ht, _skips(feats, 0), enc_mean, enc_std
 
     def ddi(self, x, noise: NoiseSource, *, ddi: bool = True):
         """The data-dependent-init pass over frames 0-1 of x [B, T>=2, H, W,
@@ -244,10 +271,8 @@ class RFN(nn.Module):
         if x.dim() != 5:
             raise ValueError("x must be [B, T, H, W, C]")
         b, t = x.shape[:2]
-        feats, f_last = self._features(x)
-        h0, c0, a0, ca0, z0, z0x = self.get_inits(b)
-        hs, _, _ = conv_lstm_scan(self.lstm, f_last[:-1], h0, c0)
-        as_ = self._unroll_a(hs, f_last, a0, ca0) if cfg.enable_smoothing else None
+        feats, f_last, hs, _, as_ = self._unroll(x)
+        z0, z0x = self.get_inits(b)[4:]
         x_tm = x.transpose(0, 1)
         n_bins = 2.0 ** cfg.glow.n_bits
         draws = [(noise.normal(z0), noise.normal(z0),
@@ -270,8 +295,7 @@ class RFN(nn.Module):
         for i in range(t - 1):
             args = (zprev, zxprev, x_tm[i + 1], hs[i],
                     as_[i] if as_ is not None else None, f_last[i + 1],
-                    [f[i] for f in feats] if feats is not None else None,
-                    *draws[i])
+                    _skips(feats, i), *draws[i])
             zx_prevs.append(zxprev)
             if self.remat and torch.is_grad_enabled():
                 out = checkpoint(step, *args, use_reentrant=False,
@@ -322,24 +346,51 @@ class RFN(nn.Module):
         return acc.sum(0)
 
     # ------------------------------------------------------------------
-    def _warmup(self, x, n_conditions: int, noise: NoiseSource,
-                kl_temperature: float = 1.0):
-        """Advance the posterior/prior chain over the conditioning frames.
-        Returns the final (h, c, zprev, zxprev)."""
-        cfg = self.cfg
-        b = x.shape[0]
-        _, f_last = self._features(x[:, :n_conditions])
-        h0, c0, a0, ca0, zprev, zxprev = self.get_inits(b)
-        hs, h_t, c_t = conv_lstm_scan(self.lstm, f_last[:-1], h0, c0)
-        as_ = self._unroll_a(hs, f_last, a0, ca0) if cfg.enable_smoothing else None
-        for t in range(n_conditions - 1):
+    def _posterior_scan(self, x, noise: NoiseSource, kl_temperature: float = 1.0):
+        """The posterior/prior chain over x [B, T, H, W, C]. Returns (steps,
+        hs, feats, last): ``steps`` one dict per step t < T-1 of prior_mean,
+        prior_std, enc_mean, enc_std, zt (prior sample, its std scaled by
+        ``kl_temperature``) and zxt (posterior sample), stacked by
+        ``_time_major`` where a caller reads them all; ``last`` the
+        h-LSTM's (h, c) and the last (zt, zxt)."""
+        b, t = x.shape[:2]
+        feats, f_last, hs, (h_t, c_t), as_ = self._unroll(x)
+        zprev, zxprev = self.get_inits(b)[4:]
+        steps = []
+        for i in range(t - 1):
             enc_mean, enc_std, prior_mean, prior_std = self._posterior_prior(
-                hs[t], as_[t] if as_ is not None else None, f_last[t + 1],
+                hs[i], as_[i] if as_ is not None else None, f_last[i + 1],
                 zprev, zxprev)
             zprev = normal_sample(prior_mean, prior_std * kl_temperature,
                                   noise.normal(prior_mean))
             zxprev = normal_sample(enc_mean, enc_std, noise.normal(enc_mean))
-        return h_t, c_t, zprev, zxprev
+            steps.append(dict(prior_mean=prior_mean, prior_std=prior_std,
+                              enc_mean=enc_mean, enc_std=enc_std, zt=zprev,
+                              zxt=zxprev))
+        return steps, hs, feats, (h_t, c_t, zprev, zxprev)
+
+    def _rollout(self, h, c, zprev, frame, n: int, noise: NoiseSource,
+                 kl_temperature: float, temperature: float):
+        """The autoregressive loop of ``predict`` and ``sample``: n frames on
+        from ``frame`` and the recurrent state (h, c, zprev), [n, B, ...].
+        The chain kernel's stacked parameters are prepared once."""
+        chain = self.flow.prepare_chain(frame.shape[0])
+        frames = []
+        for _ in range(n):
+            if self._use_skip_list:
+                cond_list = self._extract(frame)
+                condition = cond_list[-1]
+            else:
+                cond_list = None
+                condition = self._extract(frame)
+            h, c = self.lstm(condition, h, c)
+            prior_mean, prior_std = self._prior_net(torch.cat([h, zprev], -1))
+            zprev = normal_sample(prior_mean, prior_std * kl_temperature,
+                                  noise.normal(prior_mean))
+            conds, hz = self._flow_conditions(h, zprev, cond_list)
+            frame = self.flow.sample(conds, hz, noise, temperature, chain)
+            frames.append(frame)
+        return torch.stack(frames)
 
     @torch.no_grad()
     @float32_precision()
@@ -350,27 +401,160 @@ class RFN(nn.Module):
         rollout. x: [B, T>=n_conditions, H, W, C] in model space.
 
         Returns (true_x [n_conditions,B,H,W,C], predictions [n_pred,...]),
-        time-major. The chain kernel's stacked parameters are prepared once
-        per call. ``temperature`` defaults to ``cfg.temperature``. Runs in
-        full float32 (TF32 off), whatever the caller's settings.
+        time-major. ``temperature`` defaults to ``cfg.temperature``. This
+        and every method below run in full float32 (TF32 off), whatever the
+        caller's settings.
         """
         temperature = self.cfg.temperature if temperature is None else temperature
+        _, _, _, (h, c, zprev, _) = self._posterior_scan(
+            x[:, :n_conditions], noise, kl_temperature)
+        preds = self._rollout(h, c, zprev, x[:, n_conditions - 1], n_predictions,
+                              noise, kl_temperature, temperature)
+        return x[:, :n_conditions].transpose(0, 1), preds
+
+    @torch.no_grad()
+    @float32_precision()
+    def sample(self, x, n_samples: int, noise: NoiseSource,
+               temperature: float | None = None):
+        """Free-running prior rollout seeded by frame 0 of x [B, T>=1, H, W,
+        C]: [n_samples, B, H, W, C]."""
+        temperature = self.cfg.temperature if temperature is None else temperature
+        h, c, _, _, zprev, _ = self.get_inits(x.shape[0])
+        return self._rollout(h, c, zprev, x[:, 0], n_samples, noise, 1.0, temperature)
+
+    @torch.no_grad()
+    @float32_precision()
+    def reconstruct(self, x, noise: NoiseSource, temperature: float | None = None):
+        """Posterior reconstructions and the flow's bijection check over x
+        [B, T, H, W, C]: (recons, recons_flow), time-major [T-1, B, H, W, C].
+        ``recons`` samples frame t+1 from the base prior under the posterior
+        conditions; ``recons_flow`` maps the dequantized frame x -> z -> x.
+        The chain kernel's stacked parameters are prepared once."""
+        cfg = self.cfg
+        temperature = cfg.temperature if temperature is None else temperature
+        b, t = x.shape[:2]
+        chain = self.flow.prepare_chain(b)
+        feats, f_last, hs, _, as_ = self._unroll(x)
+        zxprev = self.get_inits(b)[5]
+        x_tm = x.transpose(0, 1)
+        recons, recons_flow = [], []
+        for i in range(t - 1):
+            ht = hs[i]
+            enc_mean, enc_std = self._encode(ht, as_[i] if as_ is not None else None,
+                                             f_last[i + 1], zxprev)
+            if cfg.res_q:
+                enc_mean = self._prior_net(torch.cat([ht, zxprev], -1))[0] + enc_mean
+            zxprev = normal_sample(enc_mean, enc_std, noise.normal(enc_mean))
+            conds, hz = self._flow_conditions(ht, zxprev, _skips(feats, i))
+            z, _ = self.flow.log_prob(x_tm[i + 1], conds, hz, noise)
+            recons_flow.append(self.flow.sample(conds, hz, noise, temperature,
+                                                chain, z=z))
+            recons.append(self.flow.sample(conds, hz, noise, temperature, chain))
+        return torch.stack(recons), torch.stack(recons_flow)
+
+    # -- diagnostics ---------------------------------------------------------
+
+    @torch.no_grad()
+    @float32_precision()
+    def param_analysis(self, x, noise: NoiseSource) -> dict:
+        """Prior, posterior and base-distribution parameters per frame of x
+        [B, T, H, W, C], and a flow sample (temperature 1) under the
+        posterior conditions: dict(mu_p, std_p, mu_q, std_q, mu_flow,
+        std_flow, predictions), all time-major [T-1, ...]."""
+        steps, hs, feats, _ = self._posterior_scan(x, noise)
+        outs = _time_major(steps)
         chain = self.flow.prepare_chain(x.shape[0])
-        h, c, zprev, _ = self._warmup(x, n_conditions, noise, kl_temperature)
-        prediction = x[:, n_conditions - 1]
-        preds = []
-        for _ in range(n_predictions):
-            if self._use_skip_list:
-                cond_list = self._extract(prediction)
-                condition = cond_list[-1]
-            else:
-                cond_list = None
-                condition = self._extract(prediction)
-            h, c = self.lstm(condition, h, c)
-            prior_mean, prior_std = self._prior_net(torch.cat([h, zprev], -1))
-            zprev = normal_sample(prior_mean, prior_std * kl_temperature,
-                                  noise.normal(prior_mean))
-            conds, hz = self._flow_conditions(h, zprev, cond_list)
-            prediction = self.flow.sample(conds, hz, noise, temperature, chain)
-            preds.append(prediction)
-        return x[:, :n_conditions].transpose(0, 1), torch.stack(preds)
+        preds, mus, stds = [], [], []
+        for i in range(hs.shape[0]):
+            conds, _ = self._flow_conditions(hs[i], outs["zxt"][i], _skips(feats, i))
+            base = torch.cat([hs[i], outs["zt"][i]], -1)
+            pred, (mu, std) = self.flow.sample(conds, base, noise, 1.0, chain,
+                                               eval_params=True)
+            preds.append(pred)
+            mus.append(mu)
+            stds.append(std)
+        return dict(mu_p=outs["prior_mean"], std_p=outs["prior_std"],
+                    mu_q=outs["enc_mean"], std_q=outs["enc_std"],
+                    mu_flow=torch.stack(mus), std_flow=torch.stack(stds),
+                    predictions=torch.stack(preds))
+
+    @torch.no_grad()
+    @float32_precision()
+    def probability_future(self, x, n_conditions: int, noise: NoiseSource):
+        """NLL of each frame of x [B, T, H, W, C] after the first
+        ``n_conditions``, under the context frozen at ``n_conditions`` with
+        the prior's and the posterior's latent: [B, 2, T - n_conditions]
+        (0 = prior, 1 = posterior)."""
+        n_bins = 2.0 ** self.cfg.glow.n_bits
+        steps, hs, feats, _ = self._posterior_scan(x[:, :n_conditions], noise)
+        ht = hs[-1]
+        sk = _skips(feats, n_conditions - 2)
+        futures = x.transpose(0, 1)[n_conditions:]
+        futures = [x_t + noise.uniform(x_t, 0.0, 1.0 / n_bins) for x_t in futures]
+        nlls = []
+        for zk in (steps[-1]["zt"], steps[-1]["zxt"]):
+            conds, base = self._flow_conditions(ht, zk, sk)
+            nlls.append(torch.stack([self.flow.log_prob(x_t, conds, base,
+                                                        dequantize=False)[1]
+                                     for x_t in futures]))
+        return torch.stack(nlls).permute(2, 0, 1)
+
+    @torch.no_grad()
+    @float32_precision()
+    def reconstruct_elbo_gap(self, x, noise: NoiseSource, sample: bool = True):
+        """Per-frame NLL under the prior's and the posterior's latent, and
+        the per-frame KL, over x [B, T, H, W, C]. Returns (recons,
+        recons_flow, kld [T-1, B], nll [2, T-1, B]); with ``sample`` the
+        reconstructions are [T-1, 2, B, H, W, C] (0 = prior, 1 =
+        posterior), else None."""
+        temperature = self.cfg.temperature
+        steps, hs, feats, _ = self._posterior_scan(x, noise)
+        outs = _time_major(steps)
+        kld = normal_kl(outs["enc_mean"], outs["enc_std"], outs["prior_mean"],
+                        outs["prior_std"]).sum((2, 3, 4))
+        chain = self.flow.prepare_chain(x.shape[0]) if sample else None
+        x_tm = x.transpose(0, 1)
+        nlls, recons, recons_flow = [], [], []
+        for i in range(hs.shape[0]):
+            for zk in (outs["zt"][i], outs["zxt"][i]):
+                conds, base = self._flow_conditions(hs[i], zk, _skips(feats, i))
+                z, nll = self.flow.log_prob(x_tm[i + 1], conds, base, noise)
+                nlls.append(nll)
+                if sample:
+                    recons_flow.append(self.flow.sample(conds, base, noise, temperature,
+                                                        chain, z=z))
+                    recons.append(self.flow.sample(conds, base, noise, temperature,
+                                                   chain))
+        t1 = hs.shape[0]
+        nll = torch.stack(nlls).reshape((t1, 2) + nlls[0].shape).transpose(0, 1)
+        if not sample:
+            return None, None, kld, nll
+        shape = (t1, 2) + recons[0].shape
+        return (torch.stack(recons).reshape(shape),
+                torch.stack(recons_flow).reshape(shape), kld, nll)
+
+    @torch.no_grad()
+    @float32_precision()
+    def get_zt_ht_from_seq(self, x, n_conditions: int, noise: NoiseSource):
+        """The (posterior z_t, h_t, previous frame's skips) context at the
+        end of the first ``n_conditions`` frames of x: the latent
+        interpolation API."""
+        steps, hs, feats, _ = self._posterior_scan(x[:, :n_conditions], noise)
+        return steps[-1]["zxt"], hs[-1], _skips(feats, n_conditions - 2)
+
+    @torch.no_grad()
+    @float32_precision()
+    def predicts_from_zt_ht(self, zt, ht, skips, noise: NoiseSource):
+        """A frame decoded from an explicit (z_t, h_t, skips) context."""
+        conds, base = self._flow_conditions(ht, zt, skips)
+        return self.flow.sample(conds, base, noise, self.cfg.temperature)
+
+
+def _time_major(steps):
+    """``_posterior_scan``'s per-step dicts as one dict of [T-1, ...]."""
+    return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+
+
+def _skips(feats, i: int):
+    """Frame i's extractor maps, high-res first, or None without a skip list."""
+    return [f[i] for f in feats] if feats is not None else None

@@ -1,17 +1,19 @@
-"""Serving path: a ``Predictor`` answers rollout requests on one device.
+"""Serving path: a ``Predictor`` answers requests on one device.
 
 The counterpart of ``recurrent_flows_tpu.serving``:
 
-    model = RFN(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
-    pred = Predictor(model, tcfg, n_conditions=5, n_predictions=10,
-                     device="cuda")
+    pred = Predictor.from_checkpoint("runs/rfn/model_folder/last",
+                                     n_conditions=5, n_predictions=10)
     pred.warmup(batch_size=8)
     frames = pred.predict(context_frames)  # [B, n_pred, H, W, C] in [0,1]
+    recons = pred.reconstruct(frames)      # [B, T-1, H, W, C]
+    samples = pred.sample(frames[:, 0], 10)
 
-The sampling noise comes from a ``torch.Generator`` on the device, seeded
-once and advanced by every request. Requests run in full float32 with
-TF32 off (``RFN.predict`` pins it). ``reconstruct``, ``sample``,
-``from_checkpoint`` and ``export`` come later (ROADMAP.md queue 1).
+or over a model in hand, ``Predictor(model, tcfg, device="cuda")``. The
+sampling noise comes from a ``torch.Generator`` on the device, seeded once
+and advanced by every request. Requests run in full float32 with TF32 off
+(the model's methods pin it). ``export`` is not ported (ROADMAP.md queue
+1, item 4b).
 """
 
 from __future__ import annotations
@@ -19,13 +21,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .training.checkpoint import load_model_from_checkpoint
 from .training.trainer import preprocess
 from .utils.numerics import NoiseSource
 
 
 class Predictor:
     """Fixed-configuration inference over a model on ``device`` (the
-    card, unless the caller asks for the CPU)."""
+    card, unless the caller asks for the CPU). ``temperature`` replaces
+    ``cfg.temperature`` on every endpoint."""
 
     def __init__(self, model, tcfg, n_conditions: int = 5,
                  n_predictions: int = 10, temperature: float | None = None,
@@ -38,11 +42,21 @@ class Predictor:
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, device="cuda", **kw) -> "Predictor":
+        """A Predictor over the model of a checkpoint directory, the port's
+        own (``state.pt``) or a JAX one exported to ``state.npz``, with
+        ``meta.json`` beside it."""
+        model, tcfg, _ = load_model_from_checkpoint(ckpt_dir, device=device)
+        return cls(model, tcfg, device=device, **kw)
+
     # -- data-space conversion ------------------------------------------------
 
     def _to_model_space(self, frames):
         t = self.tcfg
-        x = torch.as_tensor(np.asarray(frames, np.float32), device=self.device)
+        if not isinstance(frames, torch.Tensor):
+            frames = np.asarray(frames, np.float32)
+        x = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
         return preprocess(x, t.n_bits, t.preprocess_range, t.preprocess_scale)
 
     def _to_image_space(self, x):
@@ -52,6 +66,9 @@ class Predictor:
         elif t.preprocess_range == "minmax":
             x = (x + 1.0) * 0.5
         return torch.clamp(x, 0.0, 1.0).cpu().numpy()
+
+    def _noise(self, noise):
+        return noise if noise is not None else NoiseSource(generator=self.generator)
 
     # -- public API ---------------------------------------------------------
 
@@ -68,10 +85,22 @@ class Predictor:
     def predict(self, context_frames, noise: NoiseSource | None = None):
         """context [B, >=n_conditions, H, W, C] in [0,1] -> future frames
         [B, n_pred, H, W, C] in [0,1]. ``noise`` replaces the generator's
-        draws (tests inject the JAX package's)."""
+        draws (tests inject the JAX package's), on every endpoint."""
         x = self._to_model_space(context_frames[:, : self.n_conditions])
-        if noise is None:
-            noise = NoiseSource(generator=self.generator)
         _, preds = self.model.predict(x, self.n_predictions, self.n_conditions,
-                                      noise, temperature=self.temperature)
+                                      self._noise(noise), temperature=self.temperature)
         return self._to_image_space(preds.transpose(0, 1))
+
+    def reconstruct(self, frames, noise: NoiseSource | None = None):
+        """frames [B, T, H, W, C] in [0,1] -> posterior reconstructions of
+        frames 1..T-1, [B, T-1, H, W, C] in [0,1]."""
+        recons, _ = self.model.reconstruct(self._to_model_space(frames),
+                                           self._noise(noise), self.temperature)
+        return self._to_image_space(recons.transpose(0, 1))
+
+    def sample(self, seed_frame, n_frames: int, noise: NoiseSource | None = None):
+        """Free run from one frame: seed [B, H, W, C] in [0,1] -> [B,
+        n_frames, H, W, C] in [0,1]."""
+        x = self._to_model_space(seed_frame[:, None])
+        samples = self.model.sample(x, n_frames, self._noise(noise), self.temperature)
+        return self._to_image_space(samples.transpose(0, 1))

@@ -1,13 +1,20 @@
 """Training harness of the port, the counterpart of
 ``recurrent_flows_tpu.training.trainer``: ``Trainer.build`` (data-dependent
 init on the first batch, Adam), ``train_step`` (preprocess -> ``model.loss``
--> backward -> optional global-norm clip -> Adam), ``train_epoch`` and
-``refresh_stats`` (running statistics from a fresh batch). ``fit``, plots
-and checkpoints come later (ROADMAP.md queue 1).
+-> backward -> optional global-norm clip -> Adam), ``train_epoch``,
+``fit`` (epochs with the schedules, early stopping, checkpoints ``last``
+and, after epoch 50, ``best``, ``status``, plots), ``checkpoint``/``load``
+and ``refresh_stats`` (running statistics from a fresh batch).
 
+    data = MovingMNIST(digit_size=32, seq_len=10, device="cuda")
     model = RFN(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
-    trainer = Trainer(model, tcfg, batches).build()   # batches: [B,T,H,W,C] in [0,1]
-    metrics = trainer.train_step(next(iter(batches)), beta=1.0, lr=1e-4)
+    trainer = Trainer(model, tcfg, data, "runs/rfn").build()
+    trainer.fit(n_epochs=10)      # runs/rfn/{model_folder,png_folder}
+
+``data`` is either a generator with ``.sample(generator, batch_size)``
+(the batch is made on the device, by the trainer's ``torch.Generator``) or
+an iterable of batches [B,T,H,W,C] in [0, 1] (numpy arrays or tensors; a
+tensor on the device stays there).
 
 A step runs in full float32 with TF32 off, forward and backward
 (``utils.float32_precision``), as the JAX package computes. It moves no
@@ -17,15 +24,21 @@ and Adam steps the parameters only, never the buffers.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
+import os
+import time
 
 import numpy as np
 import torch
 
 from ..flows.ddi import data_dependent_init
 from ..utils.numerics import NoiseSource, float32_precision
+from ..utils.profiling import StepTimer
 from ..utils.running_stats import has_running_stats
-from .schedules import BetaSchedule, PlateauScheduler, linear_lr
+from .checkpoint import load_state, read_meta, save_checkpoint
+from .schedules import BetaSchedule, EarlyStopping, PlateauScheduler, linear_lr
 
 
 def preprocess(x, n_bits: int = 8, rng_range: str = "0.5", scale: int = 255,
@@ -74,40 +87,55 @@ def clip_by_global_norm_(grads, max_norm: float):
 
 class Trainer:
     """Trains a model with the loss contract ``loss(x, noise) -> {nll, kl,
-    kl_free_bits}`` on one device.
+    kl_free_bits}`` on one device, writing under ``workdir`` (checkpoints,
+    ``status.txt`` and ``metrics.jsonl`` in ``model_folder``, plots in
+    ``png_folder``; only ``fit``, ``checkpoint``, ``load``, ``status`` and
+    ``plotter`` need it).
 
-    ``data`` is an iterable of numpy batches [B, T, H, W, C] in [0, 1].
-    The noise of the loss comes from a ``torch.Generator`` on the device,
-    seeded with ``tcfg.seed``; ``build`` and ``train_step`` take a
-    ``NoiseSource`` in its place (tests replay the JAX package's draws).
+    The noise of the loss and the generated batches come from one
+    ``torch.Generator`` on the device, seeded with ``tcfg.seed``; ``build``,
+    ``train_step`` and ``plot_rows`` take a ``NoiseSource`` in its place
+    (tests replay the JAX package's draws).
     """
 
-    def __init__(self, model, tcfg, data, device="cuda"):
+    def __init__(self, model, tcfg, data, workdir: str | None = None, device="cuda"):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.tcfg = tcfg
         self.data = data
+        self.workdir = workdir
         self.losses: list = []
         self.kl_hist: list = []
         self.recon_hist: list = []
         self.bits_hist: list = []
+        self.epoch_i = 0
         self.counter = 0  # optimizer steps taken, for the annealing
+        self.plot_counter = 0
+        self.best_loss = float("inf")
         self.stop = False
         self.beta_schedule = BetaSchedule(tcfg.beta_max, tcfg.beta_min,
                                           tcfg.beta_steps)
         self.plateau = PlateauScheduler(tcfg.learning_rate, tcfg.patience_lr,
                                         tcfg.factor_lr, tcfg.min_lr)
+        self.early = EarlyStopping(tcfg.patience_es)
+        self.step_timer = StepTimer()
         self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed)
         self.optimizer = None
         self._aux_iter = None
 
     def _to_model_space(self, batch):
         t = self.tcfg
-        x = torch.as_tensor(np.asarray(batch, np.float32), device=self.device)
+        if not isinstance(batch, torch.Tensor):
+            batch = np.asarray(batch, np.float32)
+        x = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
         return preprocess(x, t.n_bits, t.preprocess_range, t.preprocess_scale)
 
     def _host_batch(self):
-        """The next batch of a persistent iterator over ``data``, cycling."""
+        """A batch for build, refresh_stats and the plots: a fresh one from a
+        generator, else the next of a persistent iterator over ``data``,
+        cycling."""
+        if hasattr(self.data, "sample"):
+            return self.data.sample(self.generator, self.tcfg.batch_size)
         if self._aux_iter is None:
             self._aux_iter = iter(self.data)
         try:
@@ -116,11 +144,20 @@ class Trainer:
             self._aux_iter = iter(self.data)
             return next(self._aux_iter)
 
+    def _folder(self, *parts) -> str:
+        if self.workdir is None:
+            raise ValueError("this Trainer has no workdir")
+        return os.path.join(self.workdir, *parts)
+
     def build(self, run_ddi: bool = True, noise: NoiseSource | None = None):
-        """On the first batch (TF32 off): the running statistics the JAX
-        package's ``model.init`` leaves (where the flow has BatchNormFlows:
-        ``model.init_running_stats``), then the data-dependent init of the
-        flow's ActNorms (in place); then the Adam optimizer."""
+        """Make ``workdir``'s folders; on the first batch (TF32 off): the
+        running statistics the JAX package's ``model.init`` leaves (where
+        the flow has BatchNormFlows: ``model.init_running_stats``), then the
+        data-dependent init of the flow's ActNorms (in place); then the
+        Adam optimizer."""
+        if self.workdir is not None:
+            for sub in ("png_folder", "model_folder"):
+                os.makedirs(self._folder(sub), exist_ok=True)
         init_stats = (hasattr(self.model, "init_running_stats")
                       and self.model.cfg.glow.flow_norm == "batchnorm")
         run_ddi = run_ddi and hasattr(self.model, "ddi")
@@ -132,9 +169,11 @@ class Trainer:
                     self.model.init_running_stats(x, noise)
                 if run_ddi:
                     data_dependent_init(self.model, x, noise)
-        self.optimizer = torch.optim.Adam(self.model.parameters(),
-                                          lr=self.tcfg.learning_rate)
+        self.optimizer = self._adam()
         return self
+
+    def _adam(self):
+        return torch.optim.Adam(self.model.parameters(), lr=self.tcfg.learning_rate)
 
     def train_step(self, batch, beta: float, lr: float,
                    noise: NoiseSource | None = None) -> dict:
@@ -162,9 +201,9 @@ class Trainer:
 
     def refresh_stats(self, noise: NoiseSource | None = None) -> None:
         """Update the running statistics (``model.stats_refresh``, TF32
-        off) from the next batch of ``data``, so that the sampling
-        direction and ``eval_norm`` see trained statistics. Nothing to do
-        for a model without running statistics."""
+        off) from a fresh batch, so that the sampling direction and
+        ``eval_norm`` see trained statistics. Nothing to do for a model
+        without running statistics."""
         if not has_running_stats(self.model):
             return
         x = self._to_model_space(self._host_batch())
@@ -173,13 +212,29 @@ class Trainer:
                 x, noise or NoiseSource(generator=self.generator))
 
     def train_epoch(self, steps: int | None = None) -> float:
-        """Up to ``steps`` optimizer steps over ``data`` with beta and the
-        learning rate from the schedules; the metrics are read from the
-        device once, at the end. Returns the running mean loss per frame."""
+        """Up to ``steps`` optimizer steps (a generator makes a batch per
+        step; an iterable is read from its start and may end first) with
+        beta and the learning rate from the schedules. The metrics are read
+        from the device once, at the end; one step in 50 is also timed to
+        the device's end (``step_timer``). Returns the running mean loss
+        per frame."""
         tcfg = self.tcfg
         steps = steps if steps is not None else tcfg.steps_per_epoch
+        generator = hasattr(self.data, "sample")
+        it = None if generator else iter(self.data)
         pending = []
-        for _, batch in zip(range(steps), self.data):
+        t0 = time.perf_counter()
+        for step_i in range(steps):
+            time_this = step_i % 50 == 0
+            if time_this:
+                self.step_timer.start()
+            if generator:
+                batch = self.data.sample(self.generator, tcfg.batch_size)
+            else:
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
             beta = self.beta_schedule(self.counter)
             if tcfg.scheduler_type == "linear":
                 lr, self.stop = linear_lr(tcfg.learning_rate, self.counter,
@@ -187,14 +242,181 @@ class Trainer:
                                           tcfg.linear_num_steps)
             else:
                 lr = self.plateau.lr
-            pending.append(self.train_step(batch, beta, lr))
+            metrics = self.train_step(batch, beta, lr)
+            if time_this:
+                self.step_timer.stop(metrics["loss"])
             self.counter += 1
+            pending.append(metrics)
             if self.stop:
                 break
-        t = tcfg.n_frames - 1
-        for m in pending:
-            self.losses.append(float(m["loss"]) / t)
-            self.kl_hist.append(float(m["kl"]) / t)
-            self.recon_hist.append(float(m["nll"]) / t)
-            self.bits_hist.append(float(m["bits"]))
+        if pending:
+            fetched = [{k: float(v) for k, v in m.items()} for m in pending]
+            self.step_timer.note_window(len(pending), time.perf_counter() - t0)
+            t = tcfg.n_frames - 1
+            for m in fetched:
+                self.losses.append(m["loss"] / t)
+                self.kl_hist.append(m["kl"] / t)
+                self.recon_hist.append(m["nll"] / t)
+                self.bits_hist.append(m["bits"])
         return float(np.mean(self.losses)) if self.losses else float("nan")
+
+    def fit(self, n_epochs: int | None = None, plot: bool = True,
+            plot_every: int = 1):
+        """``n_epochs`` epochs (``tcfg.n_epochs``), as the JAX package's
+        ``fit``: after each, the plots (a failure is printed, never
+        raised), ``last`` every ``tcfg.checkpoint_every`` epochs, at the
+        last epoch and on a stop, ``best`` from epoch 51 on, the plateau
+        schedule and ``status``."""
+        n_epochs = n_epochs if n_epochs is not None else self.tcfg.n_epochs
+        for _ in range(n_epochs):
+            self.epoch_i += 1
+            epoch_loss = self.train_epoch()
+            if plot and self.epoch_i % plot_every == 0:
+                try:
+                    self.plotter()
+                except Exception as e:  # plotting must never kill training
+                    print(f"plotter failed: {e!r}")
+            ck_every = self.tcfg.checkpoint_every
+            early_stop = self.early.step(epoch_loss)
+            if (self.epoch_i % ck_every == 0 or self.epoch_i == n_epochs
+                    or self.stop or early_stop):
+                # an early stop on an off-cadence epoch still saves 'last'
+                self.checkpoint("last")
+            if early_stop or self.stop:
+                break
+            if self.early.best_loss < self.best_loss and self.epoch_i > 50:
+                self.best_loss = self.early.best_loss
+                self.checkpoint("best")
+            if self.tcfg.scheduler_type == "plateau":
+                self.plateau.step(epoch_loss)
+            self.status(epoch_loss)
+        return self
+
+    # -- persistence ----------------------------------------------------------
+
+    def checkpoint(self, name: str):
+        """Save ``model_folder/<name>`` (``training.checkpoint``), the
+        running statistics refreshed first so that the sampling direction
+        of the saved model sees trained ones. A failed refresh raises and
+        saves nothing: a checkpoint with stale statistics would be served
+        with ``eval_norm`` as if they were trained."""
+        self.refresh_stats()
+        cfg = getattr(self.model, "cfg", None)
+        meta = dict(
+            model_class=type(self.model).__name__,
+            model_config=dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else None,
+            train_config=dataclasses.asdict(self.tcfg),
+            epoch=self.epoch_i,
+            counter=self.counter,
+            plot_counter=self.plot_counter,
+            losses=self.losses[-10000:],
+            kl_loss=self.kl_hist[-10000:],
+            recon_loss=self.recon_hist[-10000:],
+            bits_per_dim=self.bits_hist[-10000:],
+            best_loss=self.best_loss,
+            plateau_lr=self.plateau.lr,
+        )
+        save_checkpoint(self._folder("model_folder", name), self.model,
+                        self.optimizer, self.counter, meta)
+
+    def load(self, name: str = "last"):
+        """Resume from ``model_folder/<name>``, a port checkpoint or a JAX
+        one exported to npz: the model's parameters and buffers, Adam's
+        state (made here if ``build`` was not called), the counters and the
+        histories."""
+        path = self._folder("model_folder", name)
+        if self.optimizer is None:
+            self.optimizer = self._adam()
+        load_state(path, self.model, self.optimizer)
+        meta = read_meta(path)
+        self.epoch_i = meta["epoch"]
+        self.counter = meta["counter"]
+        self.plot_counter = meta["plot_counter"]
+        self.losses = meta["losses"]
+        self.kl_hist = meta["kl_loss"]
+        self.recon_hist = meta["recon_loss"]
+        self.bits_hist = meta["bits_per_dim"]
+        self.best_loss = meta["best_loss"]
+        self.plateau.lr = meta.get("plateau_lr", self.tcfg.learning_rate)
+        return self
+
+    def status(self, epoch_loss: float):
+        """Append the epoch's record to ``metrics.jsonl`` and its line to
+        ``status.txt``, with the JAX package's fields."""
+        beta_now = self.beta_schedule(self.counter)
+        last = lambda h: h[-1] if h else None
+        rec = dict(epoch=self.epoch_i, loss=epoch_loss, kl=last(self.kl_hist),
+                   nll=last(self.recon_hist), bits=last(self.bits_hist),
+                   beta=beta_now, lr=self.plateau.lr, step=self.counter,
+                   step_stats=self.step_timer.stats())
+        with open(self._folder("model_folder", "metrics.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        nan = float("nan")
+        kl, nll, bits = (nan if v is None else v for v in (rec["kl"], rec["nll"], rec["bits"]))
+        with open(self._folder("model_folder", "status.txt"), "a") as f:
+            f.write(f"epoch {self.epoch_i} loss {epoch_loss:.4f} "
+                    f"kl {kl:.4f} nll {nll:.4f} "
+                    f"bits {bits:.4f} beta {beta_now:.5f} "
+                    f"lr {self.plateau.lr:.6f}\n")
+
+    # -- plots ----------------------------------------------------------------
+
+    def plot_rows(self, noise: NoiseSource | None = None) -> list:
+        """The device part of the plots, on a fresh batch: (name, uint8
+        frames [T, B, H, W, C]) for the batch itself, a free-running sample
+        from its frame 0, the context followed by the prediction, the
+        posterior reconstructions and the flow's x -> z -> x. Refreshes the
+        running statistics first."""
+        tcfg, model = self.tcfg, self.model
+        self.refresh_stats()
+        x = self._to_model_space(self._host_batch())
+        noise = noise or NoiseSource(generator=self.generator)
+        true_x, preds = model.predict(x, tcfg.n_predictions, tcfg.n_conditions, noise)
+        recons, recons_flow = model.reconstruct(x, noise)
+        samples = model.sample(x, x.shape[1], noise)
+
+        def post(a):
+            return preprocess(a, tcfg.n_bits, tcfg.preprocess_range,
+                              tcfg.preprocess_scale, reverse=True).cpu().numpy()
+
+        return [("true", post(x.transpose(0, 1))),
+                ("sample|frame0", post(samples)),
+                ("prediction", post(torch.cat([true_x, preds]))),
+                ("recon", post(recons)),
+                ("recon-bijection", post(recons_flow))]
+
+    def plotter(self):
+        """``png_folder/losses.png`` (the four histories) and
+        ``samples<n>.png`` (the rows of ``plot_rows``, first sequence, up
+        to 10 frames); needs matplotlib."""
+        rows = self.plot_rows()
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        png = self._folder("png_folder")
+        fig, ax = plt.subplots(1, 4, figsize=(20, 5))
+        for a, (hist, title) in zip(ax, [(self.bits_hist, "bits per dim"),
+                                         (self.losses, "loss"), (self.kl_hist, "KL"),
+                                         (self.recon_hist, "NLL")]):
+            a.plot(hist)
+            a.set_title(title)
+            a.grid()
+        fig.tight_layout()
+        fig.savefig(os.path.join(png, "losses.png"), bbox_inches="tight")
+        plt.close(fig)
+        t_show = min(rows[0][1].shape[0], 10)
+        fig, ax = plt.subplots(len(rows), t_show, figsize=(1.5 * t_show, 1.5 * len(rows)))
+        for r, (name, arr) in enumerate(rows):
+            for t in range(t_show):
+                a = ax[r, t]
+                a.imshow(arr[min(t, arr.shape[0] - 1), 0].squeeze(), cmap="gray")
+                a.axis("off")
+                if t == 0:
+                    a.set_title(name, fontsize=8)
+        fig.tight_layout()
+        fig.savefig(os.path.join(png, f"samples{self.plot_counter}.png"),
+                    bbox_inches="tight")
+        plt.close(fig)
+        self.plot_counter += 1

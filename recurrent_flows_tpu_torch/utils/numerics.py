@@ -84,7 +84,7 @@ def unsqueeze2d(x: torch.Tensor) -> torch.Tensor:
 
 
 class NoiseSource:
-    """Standard-normal (and uniform) draws, taken in call order.
+    """Standard-normal, uniform and integer draws, taken in call order.
 
     Either fresh from a ``torch.Generator`` on the model's device, or
     replayed from a sequence of arrays (so a test can inject the exact
@@ -112,6 +112,13 @@ class NoiseSource:
                            device=like.device, dtype=like.dtype)
             return low + (high - low) * u
         return self._next(like)
+
+    def randint(self, low: int, high: int, shape, device) -> torch.Tensor:
+        """Integers uniform in [low, high), int64, of ``shape`` on ``device``."""
+        if self._replay is None:
+            return torch.randint(low, high, tuple(shape), generator=self.generator,
+                                 device=device)
+        return self._next(torch.empty(tuple(shape), dtype=torch.int64, device=device))
 
     def _next(self, like: torch.Tensor) -> torch.Tensor:
         try:

@@ -67,7 +67,7 @@ def main():
     if not hasattr(ops, "nhwc_view"):  # a wrapper that takes contiguous tensors only
         coupling = lambda z2, shift, s, rev: ops.coupling_transform(
             z2.contiguous(), shift.contiguous(), s, rev)
-    for shape, rev, views in chip_smoke.coupling_cases(rnd):
+    for shape, rev, views in chip_smoke.coupling_cases(rnd, chip_smoke.COUPLING_TIMED):
         report(f"coupling {'reverse' if rev else 'forward'} z2 {shape}",
                chip_smoke.coupling_times(coupling, *views, rev))
     for l, (hw, c) in enumerate(chip_smoke.FLOW_SCALES):

@@ -93,6 +93,14 @@ def running_stats_like(tree, seed: int):
     return walk(tree)
 
 
+def rfn_pair(cfg: RFNConfig, seed: int = 0):
+    """(cfg, JAX RFN, its perturbed variables, the port's RFN on them)."""
+    from recurrent_flows_tpu_torch.models import RFN as PortRFN
+
+    jm, v = jax_rfn_variables(cfg, seed)
+    return cfg, jm, v, port_from(PortRFN(to_port(cfg)), v)
+
+
 def port_from(module: torch.nn.Module, variables) -> torch.nn.Module:
     module.load_state_dict(from_flax(variables["params"],
                                      variables.get("consts"), module,
@@ -119,18 +127,19 @@ def scale_shapes(gcfg: GlowConfig, x_channels: int, image_size: int):
 
 
 def flow_sample_noise(key, gcfg: GlowConfig, x_channels: int, image_size: int,
-                      batch: int):
+                      batch: int, base: bool = True, dtype=jnp.float32):
     """The eps ``ListGlow.sample(None, ..., key)`` draws: the base eps, then
     one per split, scale L-2 first (glow.py:622-627, :575-577,
-    modules.py:566)."""
+    modules.py:566). ``base=False``: the draws of ``sample(z, ...)``, which
+    splits off the base key and never uses it."""
     shapes = scale_shapes(gcfg, x_channels, image_size)
     rng_base, rng = jax.random.split(key)
     hw, c = shapes[-1]
-    eps = [_normal(rng_base, (batch, hw, hw, c))]
+    eps = [_normal(rng_base, (batch, hw, hw, c), dtype)] if base else []
     for l in reversed(range(gcfg.L - 1)):
         rng, sub = jax.random.split(rng)
         hw, c = shapes[l]
-        eps.append(_normal(sub, (batch, hw, hw, c // 2)))
+        eps.append(_normal(sub, (batch, hw, hw, c // 2), dtype))
     return eps
 
 
@@ -189,5 +198,97 @@ def rfn_ddi_noise(key, cfg: RFNConfig, batch: int):
                            cfg.x_channels), cfg.glow.n_bits)]
 
 
+def assert_close_rel(got, ref, tol: float, what: str = ""):
+    """Same shape, finite, and every element within tol·(1+|ref|)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    assert np.isfinite(got).all(), what
+    err = np.abs(got - ref) / (1.0 + np.abs(ref))
+    assert err.max() <= tol, (what, float(err.max()))
+
+
 def with_glow(cfg: RFNConfig, **glow) -> RFNConfig:
     return dataclasses.replace(cfg, glow=dataclasses.replace(cfg.glow, **glow))
+
+
+# --- the draws of RFN's other methods (rfn.py:514-747) ------------------------
+
+
+def _shapes(cfg: RFNConfig, batch: int):
+    hu = cfg.image_size // (2 ** cfg.L)
+    return ((batch, hu, hu, cfg.z_dim),
+            (batch, cfg.image_size, cfg.image_size, cfg.x_channels))
+
+
+def _flow(key, cfg, batch, base=True, dtype=jnp.float32):
+    return flow_sample_noise(key, cfg.glow, cfg.x_channels, cfg.image_size, batch, base,
+                             dtype)
+
+
+def posterior_scan_noise(key, cfg: RFNConfig, batch: int, t: int):
+    """``RFN._posterior_scan(x [B, t, ...], key)``: per step the prior eps,
+    then the encoder eps (rfn.py:572, :590-592)."""
+    zshape, _ = _shapes(cfg, batch)
+    eps = []
+    for k in jax.random.split(key, t - 1):
+        k1, k2 = jax.random.split(k)
+        eps += [_normal(k1, zshape), _normal(k2, zshape)]
+    return eps
+
+
+def rfn_reconstruct_noise(key, cfg: RFNConfig, batch: int, t: int, dtype=jnp.float32):
+    """``RFN.reconstruct``: per frame the encoder eps, the dequantization
+    uniform, recons_flow's split eps, recons' base and split eps
+    (rfn.py:545-552). ``dtype`` as in ``rfn_loss_noise``."""
+    zshape, xshape = _shapes(cfg, batch)
+    eps = []
+    for k in jax.random.split(key, t - 1):
+        k1, k2, k3, k4 = jax.random.split(k, 4)
+        eps += [_normal(k1, zshape, dtype), _uniform(k2, xshape, cfg.glow.n_bits, dtype)]
+        eps += _flow(k3, cfg, batch, False, dtype) + _flow(k4, cfg, batch, True, dtype)
+    return eps
+
+
+def rfn_sample_noise(key, cfg: RFNConfig, batch: int, n: int):
+    """``RFN.sample``: per frame the prior eps, then a flow sample
+    (rfn.py:737, :749-752)."""
+    zshape, _ = _shapes(cfg, batch)
+    eps = []
+    for k in jax.random.split(key, n):
+        k1, k2 = jax.random.split(k)
+        eps += [_normal(k1, zshape)] + _flow(k2, cfg, batch)
+    return eps
+
+
+def rfn_param_analysis_noise(key, cfg: RFNConfig, batch: int, t: int):
+    """The scan, then a flow sample per frame (rfn.py:609-623)."""
+    eps = posterior_scan_noise(key, cfg, batch, t)
+    for k in jax.random.split(jax.random.fold_in(key, 1), t - 1):
+        eps += _flow(k, cfg, batch)
+    return eps
+
+
+def rfn_probability_future_noise(key, cfg: RFNConfig, batch: int, t: int,
+                                 n_conditions: int):
+    """The scan over the context, then one uniform per future frame; the
+    JAX package uses the same keys for both latents (rfn.py:648-661)."""
+    _, xshape = _shapes(cfg, batch)
+    eps = posterior_scan_noise(key, cfg, batch, n_conditions)
+    for k in jax.random.split(jax.random.fold_in(key, 2), t - n_conditions):
+        eps.append(_uniform(k, xshape, cfg.glow.n_bits))
+    return eps
+
+
+def rfn_elbo_gap_noise(key, cfg: RFNConfig, batch: int, t: int, sample: bool = True):
+    """The scan, then per frame and latent (prior, posterior) the uniform
+    and, with ``sample``, recons_flow's split eps and a flow sample
+    (rfn.py:676-700)."""
+    _, xshape = _shapes(cfg, batch)
+    eps = posterior_scan_noise(key, cfg, batch, t)
+    for k in jax.random.split(jax.random.fold_in(key, 3), t - 1):
+        for kk in (0, 1):
+            k1, k2, k3 = jax.random.split(jax.random.fold_in(k, kk), 3)
+            eps.append(_uniform(k1, xshape, cfg.glow.n_bits))
+            if sample:
+                eps += _flow(k2, cfg, batch, base=False) + _flow(k3, cfg, batch)
+    return eps
