@@ -5,7 +5,8 @@
 
 Drives the port's two main paths at the full width of
 ``rfn_mnist_production``, then of ``rfn_bair`` and of a batch-norm variant
-of ``rfn_kth``, on random weights made from a seed: the serving rollout
+of ``rfn_kth`` (and, in phase 12, the families SRNN, VRNN and SVG at their
+presets), on random weights made from a seed: the serving rollout
 (``Predictor.predict`` -> ``RFN.predict``, ``chain_impl='sample'``) and the
 training step (``Trainer.build`` -> ``Trainer.train_step`` -> ``RFN.loss``
 -> ``ListGlow.log_prob``, forward and backward, with Adam) in its three
@@ -66,7 +67,17 @@ configurations: A the preset as it is, B ``coupling_impl='fused'``, C
     ``reconstruct``, ``sample`` and ``probability_future`` card against
     CPU (each element within a tolerance times 1 + its |ref|), and the
     diagnostics (``param_analysis``, ``probability_future``,
-    ``reconstruct_elbo_gap``) on the card with exact launch counts.
+    ``reconstruct_elbo_gap``) on the card with exact launch counts;
+12. the other families, ``srnn_mnist``, ``vrnn_mnist`` and ``svg_mnist`` at
+    full width: the gates kernel against its plain version at h = 256 on
+    8x8 (B=32 and B=8), both timed with their inputs out of L2; then per preset, on Moving MNIST made on the card:
+    ``Trainer.build`` and 2 train steps of 32 sequences of 10 frames (ms,
+    peak GiB) and one profiled, the ``last`` checkpoint served by
+    ``Predictor.from_checkpoint`` bit for bit, 3 requests each of
+    ``predict`` (5 context + 10 predicted frames), ``reconstruct`` and
+    ``sample`` (10 frames) of 8 sequences with exact launch counts and a
+    profiled ``predict``; then the loss pieces, a ``predict`` and the
+    IW-ELBO on the card against the CPU at B=2.
 
 Any failure raises and the script exits non-zero. The last two lines of
 standard output are the kernels' JSON record (with each kernel's launches
@@ -145,6 +156,8 @@ TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS_A = 30, 10, 3
 # published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
 # and the float32 rate outside the tensor cores
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+# its L2 (NVIDIA's data sheet): what cold_ms rotates its copies past
+L2_BYTES = 50 * 2**20
 ROOT = Path(__file__).resolve().parent
 
 
@@ -218,6 +231,24 @@ def small_ms(fn) -> float:
     the coupling, the folded 1x1, the gates): the median of 5 replays of 100
     calls."""
     return cuda_ms(fn, iters=100, repeats=5)
+
+
+def cold_ms(fn, make_args, n_bytes: int) -> float:
+    """``small_ms`` of ``fn(*args)`` with its inputs and outputs out of L2:
+    the calls cycle through enough copies ``make_args()`` that more than
+    three L2s of bytes (``n_bytes`` per call) pass between two reads of one
+    copy, and every call's outputs are kept, so that none is written where
+    an earlier one was. The time to hold against a bound of bytes over the
+    device memory rate."""
+    copies = [make_args() for _ in range(max(2, -(-3 * L2_BYTES // n_bytes)))]
+    kept, turn = [], iter(range(10**9))
+
+    def call():
+        kept.append(fn(*copies[next(turn) % len(copies)]))
+
+    ms = small_ms(call)
+    del kept[:]
+    return ms
 
 
 def launch_floor_ms() -> float:
@@ -1668,6 +1699,233 @@ def lifecycle(rng, record, card):
     return paths
 
 
+# phase 12: SRNN, VRNN and SVG at their presets (64x64 gray, B=32, T=10).
+# The gates at h = 256 on 8x8 maps: the train step's B=32 and the request's
+# B=8 (SRNN's lstm_h and lstm_a, VRNN's lstm)
+FAMILY_GATES = [(32, 8, 8, 256), (BATCH, 8, 8, 256)]
+FAMILY_STEPS = 2
+# card vs CPU at B=2 (4 frames; predict: 2 context, 2 predicted; the IW-ELBO
+# with K=3), the same weights and replayed noise. The loss pieces and the
+# IW-ELBO are sums over 3x64x64 pixels, each within tol·(1+|ref|); the
+# predicted frames are probabilities or sigmoids in [0, 1], each element
+# within an absolute tol. In this script's first four runs on the card
+# (H100 700 W) the sums differed by at most 1.8e-6 of 1+|ref| (SVG's kl)
+# and the frames by 7.5e-6: these limits hold them with a margin of 5.5x
+# and 13x
+TOL_FAMILY_SUM = 1e-5
+TOL_FAMILY_FRAME = 1e-4
+
+
+def check_family_gates(record) -> dict:
+    """The gates kernel against its plain version at FAMILY_GATES, within
+    TOL_ELEMENTWISE, repeating bit for bit; device times out of L2 (cold_ms,
+    the kernel's also warm: warm_ms) beside the plain version's and the
+    bound. Returns the worst error and the rows."""
+    from recurrent_flows_tpu_torch.ops import convlstm_gates, convlstm_gates_ref, gates_plan
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rnd = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale
+    rows, worst = [], 0.0
+    for b, h, w, hc in FAMILY_GATES:
+        gates, c = rnd(b, h, w, 4 * hc), rnd(b, h, w, hc)
+        peeps = [rnd(1, h, w, hc, scale=0.1) for _ in range(3)]
+        name = f"convlstm_gates [{b},{h},{w},{4 * hc}]"
+        e = check_elementwise(name, convlstm_gates(gates, c, *peeps),
+                              convlstm_gates_ref(gates, c, *peeps), (TOL_ELEMENTWISE,) * 2)
+        check_repeats(name, lambda: convlstm_gates(gates, c, *peeps))
+        plan = gates_plan(b, h * w, hc)
+        n_bytes = nbytes(gates, c, *peeps, c, c)
+        # timed cold, as the bound assumes: one copy (14.9 MB at B=32) would
+        # stay in L2 from one replayed call to the next
+        fresh = lambda: (gates.clone(), c.clone(), *(p.clone() for p in peeps))
+        times = gates_times(convlstm_gates, gates, c, peeps)
+        row = dict(shape=list(gates.shape), plan=plan._asdict(), err=e,
+                   warm_ms=times.pop("ms"), **times,
+                   ms=cold_ms(convlstm_gates, fresh, n_bytes),
+                   plain_ms=cold_ms(convlstm_gates_ref, fresh, n_bytes),
+                   n_bytes=n_bytes, flops=25 * c.numel(), **bound(n_bytes, 25 * c.numel()))
+        if row["ms"] < row["bound_ms"]:
+            raise AssertionError(f"{name}: {row['ms']:.6f} ms cold, under its bound of "
+                                 f"{row['bound_ms']:.6f} ms: the timing is not cold")
+        rows.append(row)
+        worst = max(worst, e)
+        print(f"{name}: plan {plan.blocks} blocks of {plan.threads} threads, err {e:.3e}, "
+              f"{row['ms']:.5f} ms cold ({row['warm_ms']:.5f} warm in L2), plain "
+              f"{row['plain_ms']:.5f} cold, bound "
+              f"{row['bound_ms']:.6f} ({row['bound_by']}), in-place add {row['add_ms']:.5f}, "
+              f"host {row['host_us']:.1f} us per eager call")
+    record["gates"] = rows
+    return dict(max_abs_err=worst, rows=rows)
+
+
+def family_launches(name: str, path: str, frames: int) -> dict:
+    """convlstm_gates launches of one call of ``path`` over ``frames`` frames
+    (the only kernel these families run; SVG runs none). A train step: SRNN's
+    lstm_h and lstm_a scan the frames-1 transitions once each, outside the
+    recomputed per-frame steps; VRNN's lstm runs inside them, so the
+    recomputation launches it a second time in the backward. ``predict``
+    (``frames`` predicted): the h-LSTM over the N_COND-1 context transitions,
+    then once per predicted frame; ``reconstruct``: SRNN's two LSTMs and
+    VRNN's one per transition; ``sample``: once per frame."""
+    if name == "svg_mnist":
+        n = 0
+    elif path == "predict":
+        n = N_COND - 1 + frames
+    elif path == "sample":
+        n = frames
+    else:
+        n = (1 if (name, path) == ("vrnn_mnist", "reconstruct") else 2) * (frames - 1)
+    return dict(actnorm_invconv=0, convlstm_gates=n, coupling_transform=0, glowchain=0,
+                glowstep=0)
+
+
+def family_card_vs_cpu(model, x) -> dict:
+    """The loss pieces, one ``predict`` (2 context, 2 predicted frames) and
+    the IW-ELBO (K=3) of ``model`` on the card against its CPU copy, on
+    x [2, 4, ...] (model space) with the same injected noise: per output its
+    largest |err| (absolute for the frames, over 1+|ref| for the sums)."""
+    from recurrent_flows_tpu_torch.utils import NoiseSource
+
+    cpu_model = copy.deepcopy(model).cpu()
+    calls = {"loss": lambda m, xx, n: m.loss(xx, n),
+             "predict": lambda m, xx, n: {"frames": m.predict(xx, 2, 2, n)[1]},
+             "iw_elbo": lambda m, xx, n: {"iw_elbo": m.elbo_importance_weighting(xx, 3, n)}}
+    errs = {}
+    for name, fn in calls.items():
+        rec = RecordedNoise(NoiseSource(generator=torch.Generator().manual_seed(13)))
+        with torch.no_grad():
+            ref = fn(cpu_model, x.cpu(), rec)
+            got = fn(model, x, NoiseSource(replay=rec.draws))
+        for key, r in ref.items():
+            g = got[key].cpu()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"card vs CPU {name} {key}: not finite")
+            e, rel = rel_err(g, r)
+            frame = key == "frames"
+            errs[f"{name}.{key}"] = dict(err=e if frame else rel,
+                                         limit=TOL_FAMILY_FRAME if frame else TOL_FAMILY_SUM)
+    del cpu_model
+    return errs
+
+
+def family(name, record, data, gen) -> dict:
+    """Phase 12 for one preset (see the module docstring). Returns {path:
+    launches}."""
+    import shutil
+
+    from recurrent_flows_tpu_torch import config, models, ops
+    from recurrent_flows_tpu_torch.serving import Predictor
+    from recurrent_flows_tpu_torch.training import Trainer
+
+    mcfg, tcfg = getattr(config, name)()
+    cls = getattr(models, type(mcfg).__name__[:-len("Config")])
+    model = cls(mcfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    perturb_(model, seed=1)
+    n_params = sum(p.numel() for p in model.parameters())
+    workdir = ROOT / "runs" / f"chip_smoke_{name}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    trainer = Trainer(model, tcfg, data, str(workdir)).build()
+    build_s = time.perf_counter() - t0
+    paths, steps = {}, []
+    want = family_launches(name, "train", tcfg.n_frames)
+    batches = [data.sample(gen, tcfg.batch_size) for _ in range(FAMILY_STEPS + 1)]
+    ops.reset_launch_counts()
+    for batch in batches[:FAMILY_STEPS]:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = counted(f"{name} step", lambda: trainer.train_step(
+            batch, beta=tcfg.beta_min, lr=tcfg.learning_rate), want)
+        m = {k: float(v) for k, v in m.items()}
+        ms = (time.perf_counter() - t0) * 1e3
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{name} step: metrics not finite: {m}")
+        steps.append(dict(ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30, **m))
+        print(f"{name} step {len(steps) - 1}: {ms:.1f} ms, peak {steps[-1]['peak_gib']:.2f} "
+              f"GiB, loss {m['loss']:.1f} = nll {m['nll']:.1f} + beta·kl (kl {m['kl']:.2f}), "
+              f"{m['bits']:.4f} bits/dim, launches {want}")
+    paths[f"{name}_train"] = ops.launch_counts()
+    prof = profile_call(lambda: trainer.train_step(batches[-1], beta=tcfg.beta_min,
+                                                   lr=tcfg.learning_rate), steps[-1]["ms"])
+    print_profile(f"{name} step", prof)
+    rec = dict(parameters=n_params, build_s=build_s, steps=steps, step_profile=prof,
+               launches_per_step=want)
+
+    # checkpoint -> Predictor.from_checkpoint, bit for bit
+    trainer.checkpoint("last")
+    folder = workdir / "model_folder" / "last"
+    pred = Predictor.from_checkpoint(str(folder), n_conditions=N_COND, n_predictions=N_PRED)
+    a, b = trainer.model.state_dict(), pred.model.state_dict()
+    unequal = [n for n in a if not torch.equal(a[n], b[n])]
+    if unequal or a.keys() != b.keys() or type(pred.model) is not cls:
+        raise AssertionError(f"{name}: the served model differs from the saved one in "
+                             f"{unequal[:8]}")
+    del trainer, model, a, b
+    torch.cuda.empty_cache()
+
+    # serving: predict (median of N_REQUESTS after a warm-up), reconstruct, sample
+    pred.warmup(batch_size=BATCH)
+    frames = lambda t: data.sample(gen, BATCH)[:, :t].cpu().numpy()
+    img = (mcfg.image_size, mcfg.image_size, 1)
+    endpoints = {
+        "predict": (lambda x: pred.predict(x), N_COND,
+                    family_launches(name, "predict", N_PRED), (BATCH, N_PRED) + img),
+        "reconstruct": (lambda x: pred.reconstruct(x), LIFE_FRAMES,
+                        family_launches(name, "reconstruct", LIFE_FRAMES),
+                        (BATCH, LIFE_FRAMES - 1) + img),
+        "sample": (lambda x: pred.sample(x[:, 0], LIFE_FRAMES), 1,
+                   family_launches(name, "sample", LIFE_FRAMES), (BATCH, LIFE_FRAMES) + img)}
+    rec["serve"] = {}
+    for endpoint, (call, t, want, out_shape) in endpoints.items():
+        ops.reset_launch_counts()
+        times = []
+        for i in range(N_REQUESTS):
+            x = frames(t)
+            t0 = time.perf_counter()
+            out = counted(f"{name} {endpoint} {i}", lambda: call(x), want)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check_frames(f"{name} {endpoint} {i}", out, out_shape)
+        paths[f"{name}_{endpoint}"] = ops.launch_counts()
+        med = statistics.median(times)
+        rec["serve"][endpoint] = dict(ms=times, median_ms=med, launches_per_request=want)
+        print(f"{name} {endpoint}: median {med:.1f} ms per request of {BATCH} ({times}), "
+              f"launches {want}")
+    x = frames(N_COND)
+    prof = profile_call(lambda: pred.predict(x), rec["serve"]["predict"]["median_ms"])
+    rec["serve"]["predict"]["profile"] = prof
+    print_profile(f"{name} predict request", prof)
+
+    # card against CPU on the served model
+    xs = pred._to_model_space(data.sample(gen, 2)[:, :4])
+    errs = family_card_vs_cpu(pred.model, xs)
+    rec["card_vs_cpu"] = errs
+    print(f"{name} card vs CPU (err; limit): "
+          + ", ".join(f"{k} {v['err']:.2e} ({v['limit']:.0e})" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v["err"] <= v["limit"]}
+    if bad:
+        raise AssertionError(f"{name}: card and CPU disagree: {bad}")
+    record[name] = rec
+    del pred
+    torch.cuda.empty_cache()
+    return paths
+
+
+def families(record) -> dict:
+    """Phase 12: srnn_mnist, vrnn_mnist and svg_mnist on the card's Moving
+    MNIST. Returns {path: launches}."""
+    from recurrent_flows_tpu_torch.data import MovingMNIST
+
+    data = MovingMNIST(digit_bank="synthetic", digit_size=32, num_digits=2, seq_len=10)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    paths = {}
+    for name in ("srnn_mnist", "vrnn_mnist", "svg_mnist"):
+        t0 = time.perf_counter()
+        paths.update(family(name, record, data, gen))
+        print(f"{name} done in {time.perf_counter() - t0:.0f} s")
+    return paths
+
+
 SOURCES = {
     "coupling_transform": ("cuda", "recurrent_flows_tpu_torch/csrc/coupling.cu",
                            "recurrent_flows_tpu/ops/pallas/fused.py:75"),
@@ -1747,21 +2005,33 @@ def main() -> None:
     record["lifecycle"] = {}
     paths.update(lifecycle(rng, record["lifecycle"], card))
     print(f"lifecycle done at {time.perf_counter() - t_start:.0f} s")
+    record["families"] = {}
+    with float32_precision():
+        fam_gates = check_family_gates(record["families"])
+    paths.update(families(record["families"]))
+    print(f"families done at {time.perf_counter() - t_start:.0f} s")
 
     launches = {name: sum(p[name] for p in paths.values()) for name in SOURCES}
     never = [name for name in SOURCES if launches[name] == 0]
     on_bair = [name for name in SOURCES
                if paths["bair_serve"][name] + paths["bair_train"][name] == 0]
-    if never or on_bair:
+    on_families = [path for path in ("srnn_mnist_train", "srnn_mnist_predict",
+                                     "vrnn_mnist_train", "vrnn_mnist_predict")
+                   if paths[path]["convlstm_gates"] == 0]
+    if never or on_bair or on_families:
         raise AssertionError(f"kernels the main paths never launched: {never}; "
-                             f"that rfn_bair never launched: {on_bair}")
+                             f"that rfn_bair never launched: {on_bair}; family paths "
+                             f"without the gates: {on_families}")
+    max_err = {name: max(kernels[name]["max_abs_err"], new[name]["max_abs_err"])
+               for name in SOURCES}
+    max_err["convlstm_gates"] = max(max_err["convlstm_gates"], fam_gates["max_abs_err"])
     line = {"kernels": [
         dict(name=name, route=route, source=source, replaces=replaces,
              launches=launches[name],
              launches_by_path={path: p[name] for path, p in paths.items()},
-             **{**kernels[name],
-                "max_abs_err": max(kernels[name]["max_abs_err"], new[name]["max_abs_err"])},
-             bair_kth_shapes=new[name])
+             **{**kernels[name], "max_abs_err": max_err[name]},
+             bair_kth_shapes=new[name],
+             **({"srnn_vrnn_shapes": fam_gates["rows"]} if name == "convlstm_gates" else {}))
         for name, (route, source, replaces) in SOURCES.items()],
         "launch_floor_ms": record["launch_floor_ms"]}
     record.update(line, total_s=time.perf_counter() - t_start)

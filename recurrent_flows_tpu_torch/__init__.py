@@ -6,8 +6,10 @@ its NHWC layout at every public function. Importing this package imports
 context and builds no kernel. Kernels are built on first launch.
 """
 
-from .config import (GlowConfig, RFNConfig, TrainConfig, check_supported, rfn_bair,
-                     rfn_kth, rfn_mnist_production)
+from .config import (GlowConfig, RFNConfig, SRNNConfig, SVGConfig, TrainConfig, VRNNConfig,
+                     check_supported, rfn_bair, rfn_kth, rfn_mnist_production, srnn_mnist,
+                     svg_mnist, vrnn_mnist)
 
-__all__ = ["GlowConfig", "RFNConfig", "TrainConfig", "check_supported", "rfn_bair", "rfn_kth",
-           "rfn_mnist_production"]
+__all__ = ["GlowConfig", "RFNConfig", "SRNNConfig", "SVGConfig", "TrainConfig", "VRNNConfig",
+           "check_supported", "rfn_bair", "rfn_kth", "rfn_mnist_production", "srnn_mnist",
+           "svg_mnist", "vrnn_mnist"]

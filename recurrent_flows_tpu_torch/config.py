@@ -1,13 +1,14 @@
 """Configs of the port: its own frozen dataclasses, the structure DSL and
-the production preset, with the JAX package's field names and defaults
+the presets, with the JAX package's field names and defaults
 (``recurrent_flows_tpu/config.py``, ``configs.py``), so that a config
 written for one package reads the same in the other
 (``config_from_dict(RFNConfig, dataclasses.asdict(jax_cfg))``).
 
 ``check_supported`` refuses, at construction, every configuration the port
-cannot run as the JAX package would: TPU-only knobs raise ``ValueError``,
-paths not ported yet (the VGG ops 'deconv' and 'squeeze') raise
-``NotImplementedError`` naming their ROADMAP item.
+cannot run as the JAX package would, for each family (RFN, SRNN, VRNN,
+SVG): TPU-only knobs and values the JAX package rejects raise
+``ValueError``, paths not ported yet (the VGG ops 'deconv' and 'squeeze')
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,9 +17,10 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Tuple
 
-__all__ = ["GlowConfig", "RFNConfig", "TrainConfig", "check_supported",
-           "check_glow_supported", "config_from_dict", "parse_block",
-           "parse_structure", "rfn_bair", "rfn_kth", "rfn_mnist_production"]
+__all__ = ["GlowConfig", "RFNConfig", "SRNNConfig", "SVGConfig", "TrainConfig",
+           "VRNNConfig", "check_supported", "check_glow_supported", "config_from_dict",
+           "parse_block", "parse_structure", "rfn_bair", "rfn_kth", "rfn_mnist_production",
+           "srnn_mnist", "svg_mnist", "vrnn_mnist"]
 
 Block = Tuple[Any, ...]  # ints and keyword strings ('pool', 'conv', 'upsample', ...)
 
@@ -145,6 +147,57 @@ class RFNConfig:
 
 
 @dataclass(frozen=True)
+class SRNNConfig:
+    x_channels: int = 1
+    image_size: int = 64
+    h_dim: int = 256
+    z_dim: int = 32
+    a_dim: int = 256
+    loss_type: str = "bernoulli"  # {bernoulli, gaussian, mse, mol}
+    dequantize: bool = True
+    n_logistics: int = 5
+    n_bits: int = 8
+    preprocess_range: str = "1.0"
+    enable_smoothing: bool = True
+    res_q: bool = False
+    D: int = 0  # number of latent overshoots
+    overshot_w: float = 1.0
+    norm_type: str = "batchnorm"
+    track_running_stats: bool = False
+
+
+@dataclass(frozen=True)
+class VRNNConfig:
+    x_channels: int = 1
+    image_size: int = 64
+    h_dim: int = 256
+    z_dim: int = 32
+    loss_type: str = "bernoulli"
+    dequantize: bool = True
+    n_logistics: int = 5
+    n_bits: int = 8
+    preprocess_range: str = "1.0"
+    norm_type: str = "batchnorm"
+    track_running_stats: bool = False
+
+
+@dataclass(frozen=True)
+class SVGConfig:
+    x_channels: int = 1
+    image_size: int = 64
+    z_dim: int = 10
+    c_features: int = 128  # g_dim
+    h_dim: int = 256  # rnn_size
+    posterior_rnn_layers: int = 1
+    predictor_rnn_layers: int = 2
+    prior_rnn_layers: int = 1
+    loss_type: str = "mse"  # {bernoulli, mse, gaussian}
+    variance: float = 1.0
+    norm_type: str = "batchnorm"
+    track_running_stats: bool = False
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     batch_size: int = 32
     n_frames: int = 10
@@ -249,6 +302,36 @@ def rfn_bair():
             dataclasses.replace(train, choose_data="bair", n_frames=12))
 
 
+def srnn_mnist():
+    """SRNN on 64x64 gray Moving MNIST: h = a = 256, z = 32, smoothing,
+    Bernoulli."""
+    model = SRNNConfig(x_channels=1, image_size=64, h_dim=256, z_dim=32, a_dim=256,
+                       loss_type="bernoulli", preprocess_range="1.0",
+                       enable_smoothing=True)
+    train = TrainConfig(batch_size=32, n_frames=10, preprocess_range="1.0",
+                        learning_rate=1e-4)
+    return model, train
+
+
+def vrnn_mnist():
+    """VRNN on 64x64 gray Moving MNIST: h = 256, z = 32, Bernoulli."""
+    model = VRNNConfig(x_channels=1, image_size=64, h_dim=256, z_dim=32,
+                       loss_type="bernoulli", preprocess_range="1.0")
+    train = TrainConfig(batch_size=32, n_frames=10, preprocess_range="1.0",
+                        learning_rate=1e-4)
+    return model, train
+
+
+def svg_mnist():
+    """SVG-LP on 64x64 gray Moving MNIST: g = 128, rnn 256, z = 10, MSE on
+    frames in [0, 1]."""
+    model = SVGConfig(x_channels=1, image_size=64, z_dim=10, c_features=128, h_dim=256,
+                      loss_type="mse")
+    train = TrainConfig(batch_size=32, n_frames=10, preprocess_range="none",
+                        learning_rate=1e-3, beta_max=1e-4, beta_min=1e-4)
+    return model, train
+
+
 FLOW_NORMS = ("actnorm", "batchnorm")  # the GlowStep norm (JAX GlowStep)
 CONV_NORMS = ("actnorm", "batchnorm", "none")  # Conv2dNorm's norm
 
@@ -282,12 +365,51 @@ def check_glow_supported(g: GlowConfig) -> None:
         raise ValueError(f"unknown split2d_act {g.split2d_act!r}")
 
 
-def check_supported(cfg: RFNConfig) -> None:
-    """Raise on an RFNConfig the port does not run (see module docstring)."""
+def _check_rfn(cfg: RFNConfig) -> None:
     check_glow_supported(cfg.glow)
     for block in cfg.extractor_structure + cfg.upscaler_structure:
         for op in block:
             if op in ("deconv", "squeeze"):
                 raise NotImplementedError(
                     f"VGG op {op!r} is not ported yet; no preset uses it "
-                    "(ROADMAP.md queue 1, item 5)")
+                    "(ROADMAP.md queue 1, item 5b)")
+
+
+NORM_TYPES = ("batchnorm", "instancenorm", "none")
+
+
+def _check_common(cfg, loss_types) -> None:
+    if cfg.loss_type not in loss_types:
+        raise ValueError(f"undefined loss {cfg.loss_type!r}; one of {loss_types}")
+    if cfg.norm_type not in NORM_TYPES:
+        raise ValueError(f"unknown norm type {cfg.norm_type!r}; one of {NORM_TYPES}")
+
+
+def _check_dense_latent(cfg) -> None:
+    """SRNN and VRNN: frames of 8·n pixels (the features are H/8 x W/8)."""
+    _check_common(cfg, ("bernoulli", "gaussian", "mse", "mol"))
+    if cfg.image_size % 8 or cfg.image_size < 8:
+        raise ValueError(f"image_size {cfg.image_size}: a multiple of 8 is needed")
+    if cfg.loss_type == "mol" and cfg.x_channels not in (1, 3):
+        raise ValueError("the 'mol' likelihood takes 1 or 3 channels")
+
+
+def _check_svg(cfg: SVGConfig) -> None:
+    """SVG: a power-of-two image of at least 16 pixels."""
+    _check_common(cfg, ("bernoulli", "mse", "gaussian"))
+    n = cfg.image_size
+    if n < 16 or n & (n - 1):
+        raise ValueError(f"image_size {n}: SVG takes a power of two >= 16")
+
+
+_CHECKS = {RFNConfig: _check_rfn, SRNNConfig: _check_dense_latent,
+           VRNNConfig: _check_dense_latent, SVGConfig: _check_svg}
+
+
+def check_supported(cfg) -> None:
+    """Raise on a config the port does not run (see module docstring)."""
+    check = _CHECKS.get(type(cfg))
+    if check is None:
+        raise NotImplementedError(f"{type(cfg).__name__}: the port has the families "
+                                  "RFN, SRNN, VRNN and SVG (ROADMAP.md queue 1, item 5b)")
+    check(cfg)

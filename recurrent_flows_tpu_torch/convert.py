@@ -2,7 +2,11 @@
 
 The port's modules carry the flax names, so a leaf's path in the flax
 tree, joined by '.', is its name in the port's ``state_dict``. Conv
-kernels go from HWIO to OIHW; every other leaf (actnorm ``bias``/``logs``,
+kernels go from HWIO to OIHW; the kernel of a transposed conv
+(``nn.layers.ConvTranspose2d``: flax's ``nn.ConvTranspose``, which
+convolves with its kernel as stored where ``F.conv_transpose2d`` flips
+it) is flipped in H and W and goes from HWIO to IOHW; a ``Dense`` kernel
+keeps flax's [in, out]; every other leaf (actnorm ``bias``/``logs``,
 the LU ``lower``/``upper``/``log_s`` or the plain 1x1 ``weight``,
 ``BatchNormFlow`` ``log_gamma``/``beta`` [H,W,C], ``Conv2dZeros`` ``logs``,
 a ``Conv2dNorm``'s conv ``bias`` and ``bn_scale``/``bn_bias`` where its norm
@@ -26,6 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .nn.layers import ConvTranspose2d
+
 
 def _leaves(tree, prefix=()):
     for k, v in tree.items():
@@ -35,9 +41,17 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _convert(coll: str, tree: Mapping, expected: Mapping, kind: str) -> dict:
+def _transposed_kernels(model: nn.Module) -> set:
+    """Names of the kernels of ``model``'s transposed convs."""
+    return {f"{name}.kernel" if name else "kernel" for name, m in model.named_modules()
+            if isinstance(m, ConvTranspose2d)}
+
+
+def _convert(coll: str, tree: Mapping, expected: Mapping, kind: str,
+             transposed: set = frozenset()) -> dict:
     """{port name: tensor} for every leaf of ``tree``; raises on a leaf
-    with no counterpart in ``expected`` and on a shape mismatch."""
+    with no counterpart in ``expected`` and on a shape mismatch. The
+    kernels named in ``transposed`` are a transposed conv's."""
     out = {}
     for path, leaf in _leaves(tree):
         name = ".".join(path)
@@ -45,7 +59,9 @@ def _convert(coll: str, tree: Mapping, expected: Mapping, kind: str) -> dict:
         if name not in expected:
             raise KeyError(f"flax leaf {where} has no counterpart in {kind}")
         a = np.asarray(leaf, np.float32)
-        if path[-1] == "kernel" and a.ndim == 4:
+        if name in transposed:
+            a = np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1))  # -> IOHW, flipped
+        elif path[-1] == "kernel" and a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         ref = expected[name]
         if a.shape != tuple(ref.shape):
@@ -63,7 +79,8 @@ def from_flax(params: Mapping, consts: Mapping | None,
     a shape mismatch."""
     kind = type(model).__name__
     buffers = dict(model.named_buffers())
-    state = _convert("params", params, dict(model.named_parameters()), kind)
+    state = _convert("params", params, dict(model.named_parameters()), kind,
+                     _transposed_kernels(model))
     state.update(_convert("consts", consts or {}, buffers, kind))
     state.update(_convert("batch_stats", batch_stats or {}, buffers, kind))
     missing = sorted(set(model.state_dict()) - set(state))
@@ -77,7 +94,8 @@ def tree_from_flax(tree: Mapping, model: nn.Module) -> dict:
     (gradients, Adam moments), in the port's layout. Raises like
     ``from_flax``, also on a parameter the tree leaves out."""
     named = dict(model.named_parameters())
-    out = _convert("tree", tree, named, type(model).__name__ + "'s parameters")
+    out = _convert("tree", tree, named, type(model).__name__ + "'s parameters",
+                   _transposed_kernels(model))
     missing = sorted(set(named) - set(out))
     if missing:
         raise KeyError(f"port parameters missing from the flax tree: {missing}")

@@ -3,8 +3,11 @@
 
 Parameters keep the JAX package's names (``kernel``, ``bias``, ``scale``)
 so ``convert.from_flax`` maps each leaf by its path; conv kernels are
-stored OIHW for ``F.conv2d``. Convolutions take NHWC and run on the NCHW
-view of the same memory (channels-last strides), so no copy is made.
+stored OIHW for ``F.conv2d``, transposed-conv kernels (I, O, kH, kW)
+spatially flipped for ``F.conv_transpose2d`` (``convert`` does both), and a
+``Dense`` kernel keeps flax's [in, out] layout (``x @ kernel``), so it
+converts as it is. Convolutions take NHWC and run on the NCHW view of the
+same memory (channels-last strides), so no copy is made.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ def act(x: torch.Tensor, non_lin: str) -> torch.Tensor:
     raise ValueError(f"unknown activation: {non_lin}")
 
 
-def conv_nhwc(x, kernel, bias=None, stride: int = 1):
-    """kxk conv with explicit (k-1)//2 padding: x NHWC, kernel OIHW."""
-    p = (kernel.shape[-1] - 1) // 2
+def conv_nhwc(x, kernel, bias=None, stride: int = 1, padding: int | None = None):
+    """kxk conv, x NHWC, kernel OIHW, with explicit (k-1)//2 padding per
+    side unless ``padding`` is given (0 is flax's 'VALID')."""
+    p = (kernel.shape[-1] - 1) // 2 if padding is None else padding
     y = F.conv2d(x.permute(0, 3, 1, 2), kernel, bias, stride, p)
     return y.permute(0, 2, 3, 1)
 
@@ -53,16 +57,17 @@ def normal_(shape, std: float, generator, device) -> torch.Tensor:
 class Conv2d(nn.Module):
     """NHWC conv holding ``kernel`` [O,I,k,k] and an optional ``bias``.
 
-    Init: kernel ~ N(0, kernel_std²) (default 1/fan_in, lecun-normal-like),
-    bias zero or, with ``bias_uniform``, U[0, 1).
+    Padding (k-1)//2 per side, or ``padding``. Init: kernel ~ N(0,
+    kernel_std²) (default 1/fan_in, lecun-normal-like), bias zero or, with
+    ``bias_uniform``, U[0, 1).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  stride: int = 1, use_bias: bool = True,
                  kernel_std: float | None = None, bias_uniform: bool = False,
-                 *, device=None, generator=None):
+                 padding: int | None = None, *, device=None, generator=None):
         super().__init__()
-        self.stride = stride
+        self.stride, self.padding = stride, padding
         if kernel_std is None:
             kernel_std = 1.0 / math.sqrt(in_channels * kernel * kernel)
         self.kernel = nn.Parameter(normal_(
@@ -79,7 +84,57 @@ class Conv2d(nn.Module):
             self.bias = None
 
     def forward(self, x):
-        return conv_nhwc(x, self.kernel, self.bias, self.stride)
+        return conv_nhwc(x, self.kernel, self.bias, self.stride, self.padding)
+
+
+class ConvTranspose2d(nn.Module):
+    """NHWC transposed conv, the counterpart of flax's ``nn.ConvTranspose``
+    (``transpose_kernel=False``), holding ``kernel`` [I, O, k, k] for
+    ``F.conv_transpose2d`` and a ``bias``.
+
+    flax convolves the stride-dilated input with its [k, k, I, O] kernel as
+    stored; ``F.conv_transpose2d`` convolves with the kernel flipped, so
+    ``convert.from_flax`` flips H and W as it maps HWIO -> IOHW. flax's
+    'SAME' at k=4, s=2 pads the dilated input by (2, 2), which is torch's
+    ``padding=1`` (both give 2n); its 'VALID' pads it by k-1, torch's
+    ``padding=0``. Init: kernel ~ N(0, 1/(k²·I)), bias zero.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 4,
+                 stride: int = 2, padding: str = "SAME", *, device=None,
+                 generator=None):
+        super().__init__()
+        if padding == "SAME" and (kernel, stride) != (4, 2):
+            raise ValueError("ConvTranspose2d: 'SAME' is ported for k=4, s=2 only")
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"ConvTranspose2d: unknown padding {padding!r}")
+        self.stride = stride
+        self.padding = 1 if padding == "SAME" else 0
+        self.kernel = nn.Parameter(normal_(
+            (in_channels, out_channels, kernel, kernel),
+            1.0 / math.sqrt(in_channels * kernel * kernel), generator, device))
+        self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
+
+    def forward(self, x):
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.kernel, self.bias,
+                               self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class Dense(nn.Module):
+    """flax's ``nn.Dense``: ``x @ kernel + bias`` with ``kernel`` [in, out]
+    in flax's layout. Init: kernel ~ N(0, 1/in), bias zero."""
+
+    def __init__(self, in_features: int, out_features: int, *, device=None,
+                 generator=None):
+        super().__init__()
+        self.kernel = nn.Parameter(normal_((in_features, out_features),
+                                           1.0 / math.sqrt(in_features),
+                                           generator, device))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+
+    def forward(self, x):
+        return x @ self.kernel + self.bias
 
 
 class NormLayer(nn.Module):

@@ -18,7 +18,7 @@ from .layers import Conv2d, NormLayer, act, max_pool_nhwc
 
 def _unported(op):
     raise NotImplementedError(f"VGG op {op!r} is not ported yet "
-                              "(ROADMAP.md queue 1, item 5)")
+                              "(ROADMAP.md queue 1, item 5b)")
 
 
 def _upsample_nearest2x(x):

@@ -19,12 +19,16 @@ from .fused import (
 from .glowchain import glowchain, glowchain_ref
 from .glowstep import (GlowStepParams, LaunchPlan, glowstep, glowstep_ref,
                        launch_plan, plan_chunks, plan_exists, plan_samples)
+from .mol import (DiscretizedMixtureLogits, DiscretizedMixtureLogits1d, mol_log_prob_1d,
+                  mol_log_prob_rgb, mol_sample_1d, mol_sample_rgb)
 
-__all__ = ["AinvPlan", "CouplingPlan", "GatesPlan", "GlowStepParams", "LaunchPlan", "actnorm_invconv",
+__all__ = ["AinvPlan", "CouplingPlan", "DiscretizedMixtureLogits", "DiscretizedMixtureLogits1d",
+           "GatesPlan", "GlowStepParams", "LaunchPlan", "actnorm_invconv",
            "actnorm_invconv_ref", "ainv_plan", "convlstm_gates", "convlstm_gates_ref",
            "coupling_mode", "coupling_plan", "coupling_transform", "coupling_transform_ref",
            "gates_plan", "glowchain", "glowchain_ref", "glowstep", "glowstep_ref", "launch_counts",
-           "launch_plan", "nhwc_view", "plan_chunks", "plan_exists", "plan_samples", "reset_launch_counts"]
+           "launch_plan", "mol_log_prob_1d", "mol_log_prob_rgb", "mol_sample_1d",
+           "mol_sample_rgb", "nhwc_view", "plan_chunks", "plan_exists", "plan_samples", "reset_launch_counts"]
 
 _WRAPPERS = (actnorm_invconv, convlstm_gates, coupling_transform, glowchain,
              glowstep)

@@ -9,9 +9,10 @@ The counterpart of ``recurrent_flows_tpu.serving``:
     recons = pred.reconstruct(frames)      # [B, T-1, H, W, C]
     samples = pred.sample(frames[:, 0], 10)
 
-or over a model in hand, ``Predictor(model, tcfg, device="cuda")``. The
-sampling noise comes from a ``torch.Generator`` on the device, seeded once
-and advanced by every request. Requests run in full float32 with TF32 off
+or over a model in hand, ``Predictor(model, tcfg, device="cuda")``, of any
+family (RFN, SRNN, VRNN, SVG). The sampling noise comes from a
+``torch.Generator`` on the device, seeded once and advanced by every
+request. Requests run in full float32 with TF32 off
 (the model's methods pin it). ``export`` is not ported (ROADMAP.md queue
 1, item 4b).
 """
@@ -21,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models import split_reconstruction
 from .training.checkpoint import load_model_from_checkpoint
 from .training.trainer import preprocess
 from .utils.numerics import NoiseSource
@@ -29,7 +31,8 @@ from .utils.numerics import NoiseSource
 class Predictor:
     """Fixed-configuration inference over a model on ``device`` (the
     card, unless the caller asks for the CPU). ``temperature`` replaces
-    ``cfg.temperature`` on every endpoint."""
+    ``cfg.temperature`` on every endpoint where the config has one (RFN),
+    and is ignored otherwise, as the JAX package does."""
 
     def __init__(self, model, tcfg, n_conditions: int = 5,
                  n_predictions: int = 10, temperature: float | None = None,
@@ -40,6 +43,9 @@ class Predictor:
         self.n_conditions = n_conditions
         self.n_predictions = n_predictions
         self.temperature = temperature
+        # the endpoints' temperature argument, for a model that takes one
+        self._temp = (dict(temperature=temperature) if hasattr(model.cfg, "temperature")
+                      else {})
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     @classmethod
@@ -88,19 +94,19 @@ class Predictor:
         draws (tests inject the JAX package's), on every endpoint."""
         x = self._to_model_space(context_frames[:, : self.n_conditions])
         _, preds = self.model.predict(x, self.n_predictions, self.n_conditions,
-                                      self._noise(noise), temperature=self.temperature)
+                                      self._noise(noise), **self._temp)
         return self._to_image_space(preds.transpose(0, 1))
 
     def reconstruct(self, frames, noise: NoiseSource | None = None):
         """frames [B, T, H, W, C] in [0,1] -> posterior reconstructions of
         frames 1..T-1, [B, T-1, H, W, C] in [0,1]."""
-        recons, _ = self.model.reconstruct(self._to_model_space(frames),
-                                           self._noise(noise), self.temperature)
+        recons, _ = split_reconstruction(self.model.reconstruct(
+            self._to_model_space(frames), self._noise(noise), **self._temp))
         return self._to_image_space(recons.transpose(0, 1))
 
     def sample(self, seed_frame, n_frames: int, noise: NoiseSource | None = None):
         """Free run from one frame: seed [B, H, W, C] in [0,1] -> [B,
         n_frames, H, W, C] in [0,1]."""
         x = self._to_model_space(seed_frame[:, None])
-        samples = self.model.sample(x, n_frames, self._noise(noise), self.temperature)
+        samples = self.model.sample(x, n_frames, self._noise(noise), **self._temp)
         return self._to_image_space(samples.transpose(0, 1))

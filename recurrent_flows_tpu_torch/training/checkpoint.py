@@ -24,7 +24,8 @@ import os
 import numpy as np
 import torch
 
-from ..config import RFNConfig, TrainConfig, config_from_dict
+from .. import config as _config
+from ..config import TrainConfig, config_from_dict
 from ..convert import adam_from_optax, from_flax
 
 STATE, JAX_STATE, META = "state.pt", "state.npz", "meta.json"
@@ -89,21 +90,27 @@ def load_state(path: str, model, optimizer=None) -> int:
     raise FileNotFoundError(f"no {STATE} or {JAX_STATE} under {path}")
 
 
+FAMILIES = ("RFN", "SRNN", "VRNN", "SVG")  # model_class -> models.<name>, config.<name>Config
+
+
 def load_model_from_checkpoint(ckpt_dir: str, temperature: float | None = None,
                                device="cuda"):
-    """(model, tcfg, meta) of a checkpoint, the model on ``device`` (the
-    card unless the caller asks for the CPU). ``eval_norm`` is on where the
-    model tracked running statistics, as the JAX evaluator sets it."""
-    from ..models.rfn import RFN
+    """(model, tcfg, meta) of a checkpoint, the model (``meta.json``'s
+    ``model_class``, one of ``FAMILIES``) on ``device`` (the card unless the
+    caller asks for the CPU). ``temperature`` replaces the config's where it
+    has one. ``eval_norm`` is on where the model tracked running
+    statistics, as the JAX evaluator sets it."""
+    from .. import models
 
     meta = read_meta(ckpt_dir)
-    if meta["model_class"] != "RFN":
+    name = meta["model_class"]
+    if name not in FAMILIES:
         raise NotImplementedError(
-            f"model_class {meta['model_class']!r}: the port has RFN only; the "
-            "other families are ROADMAP.md queue 1, item 5")
-    cfg = config_from_dict(RFNConfig, meta["model_config"])
-    if temperature is not None:
+            f"model_class {name!r}: the port has {', '.join(FAMILIES)}; the "
+            "others are ROADMAP.md queue 1, item 5b")
+    cfg = config_from_dict(getattr(_config, f"{name}Config"), meta["model_config"])
+    if temperature is not None and hasattr(cfg, "temperature"):
         cfg = dataclasses.replace(cfg, temperature=temperature)
-    model = RFN(cfg, eval_norm=cfg.track_running_stats, device=device)
+    model = getattr(models, name)(cfg, eval_norm=cfg.track_running_stats, device=device)
     load_state(ckpt_dir, model)
     return model, config_from_dict(TrainConfig, meta["train_config"]), meta

@@ -11,6 +11,10 @@ and ``refresh_stats`` (running statistics from a fresh batch).
     trainer = Trainer(model, tcfg, data, "runs/rfn").build()
     trainer.fit(n_epochs=10)      # runs/rfn/{model_folder,png_folder}
 
+Every family of ``models`` (RFN, SRNN, VRNN, SVG) takes the same calls;
+with a preset: ``mcfg, tcfg = srnn_mnist()``, then ``SRNN(mcfg,
+device="cuda")`` in place of the RFN.
+
 ``data`` is either a generator with ``.sample(generator, batch_size)``
 (the batch is made on the device, by the trainer's ``torch.Generator``) or
 an iterable of batches [B,T,H,W,C] in [0, 1] (numpy arrays or tensors; a
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from ..flows.ddi import data_dependent_init
+from ..models import split_reconstruction
 from ..utils.numerics import NoiseSource, float32_precision
 from ..utils.profiling import StepTimer
 from ..utils.running_stats import has_running_stats
@@ -150,16 +155,18 @@ class Trainer:
         return os.path.join(self.workdir, *parts)
 
     def build(self, run_ddi: bool = True, noise: NoiseSource | None = None):
-        """Make ``workdir``'s folders; on the first batch (TF32 off): the
-        running statistics the JAX package's ``model.init`` leaves (where
-        the flow has BatchNormFlows: ``model.init_running_stats``), then the
-        data-dependent init of the flow's ActNorms (in place); then the
-        Adam optimizer."""
+        """Make ``workdir``'s folders; for RFN, on the first batch (TF32
+        off): the running statistics the JAX package's ``model.init`` leaves
+        (where the flow has BatchNormFlows: ``model.init_running_stats``),
+        then the data-dependent init of the flow's ActNorms (in place); then
+        the Adam optimizer. A model without ``ddi`` (SRNN, VRNN, SVG) takes
+        no batch here: its ``init`` leaves running statistics at 0 and 1."""
         if self.workdir is not None:
             for sub in ("png_folder", "model_folder"):
                 os.makedirs(self._folder(sub), exist_ok=True)
-        init_stats = (hasattr(self.model, "init_running_stats")
-                      and self.model.cfg.glow.flow_norm == "batchnorm")
+        glow = getattr(self.model.cfg, "glow", None)
+        init_stats = (hasattr(self.model, "init_running_stats") and glow is not None
+                      and glow.flow_norm == "batchnorm")
         run_ddi = run_ddi and hasattr(self.model, "ddi")
         if init_stats or run_ddi:
             x = self._to_model_space(self._host_batch())
@@ -365,25 +372,28 @@ class Trainer:
         """The device part of the plots, on a fresh batch: (name, uint8
         frames [T, B, H, W, C]) for the batch itself, a free-running sample
         from its frame 0, the context followed by the prediction, the
-        posterior reconstructions and the flow's x -> z -> x. Refreshes the
-        running statistics first."""
+        posterior reconstructions and, where ``reconstruct`` also returns
+        it (RFN), the flow's x -> z -> x. Refreshes the running statistics
+        first."""
         tcfg, model = self.tcfg, self.model
         self.refresh_stats()
         x = self._to_model_space(self._host_batch())
         noise = noise or NoiseSource(generator=self.generator)
         true_x, preds = model.predict(x, tcfg.n_predictions, tcfg.n_conditions, noise)
-        recons, recons_flow = model.reconstruct(x, noise)
+        recons, recons_flow = split_reconstruction(model.reconstruct(x, noise))
         samples = model.sample(x, x.shape[1], noise)
 
         def post(a):
             return preprocess(a, tcfg.n_bits, tcfg.preprocess_range,
                               tcfg.preprocess_scale, reverse=True).cpu().numpy()
 
-        return [("true", post(x.transpose(0, 1))),
+        rows = [("true", post(x.transpose(0, 1))),
                 ("sample|frame0", post(samples)),
                 ("prediction", post(torch.cat([true_x, preds]))),
-                ("recon", post(recons)),
-                ("recon-bijection", post(recons_flow))]
+                ("recon", post(recons))]
+        if recons_flow is not None:
+            rows.append(("recon-bijection", post(recons_flow)))
+        return rows
 
     def plotter(self):
         """``png_folder/losses.png`` (the four histories) and

@@ -112,7 +112,8 @@ def test_tree_from_flax_and_adam_from_optax(small_rfn):
                         torch.optim.Adam([torch.nn.Parameter(torch.zeros(1))]))
 
 
-@pytest.mark.parametrize("name", ["GlowConfig", "RFNConfig", "TrainConfig"])
+@pytest.mark.parametrize("name", ["GlowConfig", "RFNConfig", "TrainConfig", "SRNNConfig",
+                                  "VRNNConfig", "SVGConfig"])
 def test_port_configs_have_the_jax_fields_and_defaults(name):
     """The port keeps its own copy of the config dataclasses (it imports
     nothing of the JAX package): same fields, same defaults."""
@@ -190,10 +191,33 @@ def test_the_slice_config_is_supported():
             extractor_structure=((16, "squeeze"),) * 5))
 
 
-@pytest.mark.parametrize("name", ["rfn_mnist_production", "rfn_kth", "rfn_bair"])
+@pytest.mark.parametrize("name", ["rfn_mnist_production", "rfn_kth", "rfn_bair",
+                                  "srnn_mnist", "vrnn_mnist", "svg_mnist"])
 def test_port_presets_match_jax(name):
     for ours, theirs in zip(getattr(pconfig, name)(), getattr(jconfigs, name)()):
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert U.to_port(theirs) == ours  # asdict -> config_from_dict round trip
+
+
+@pytest.mark.parametrize("cfg", [
+    pconfig.SRNNConfig(loss_type="laplace"), pconfig.VRNNConfig(norm_type="groupnorm"),
+    pconfig.SRNNConfig(image_size=20), pconfig.VRNNConfig(loss_type="mol", x_channels=2),
+    pconfig.SVGConfig(loss_type="mol"), pconfig.SVGConfig(image_size=48),
+    pconfig.SVGConfig(image_size=8)],
+    ids=["srnn_loss", "vrnn_norm", "srnn_size", "vrnn_mol_channels", "svg_mol",
+         "svg_not_a_power_of_two", "svg_too_small"])
+def test_family_configs_the_port_cannot_run_raise_at_construction(cfg):
+    from recurrent_flows_tpu_torch import models
+
+    with pytest.raises(ValueError):
+        check_supported(cfg)
+    with pytest.raises(ValueError):
+        getattr(models, type(cfg).__name__[:-len("Config")])(cfg, device="meta")
+
+
+def test_check_supported_refuses_a_config_of_no_ported_family():
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        check_supported(pconfig.TrainConfig())
 
 
 def test_from_flax_carries_the_flow_variants_and_batch_stats():

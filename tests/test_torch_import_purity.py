@@ -21,7 +21,7 @@ bad = [m for m in sys.modules if m in ("jax", "recurrent_flows_tpu")
        or m.startswith(("jax.", "triton", "recurrent_flows_tpu."))]
 assert not bad, bad
 assert not torch.cuda.is_initialized()
-print(len(names))
+print(len(names), " ".join(names))
 """
 
 
@@ -32,7 +32,11 @@ def test_importing_every_module_keeps_jax_triton_and_cuda_out(tmp_path):
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every module was walked
+    count, names = out.stdout.split(maxsplit=1)
+    assert int(count) >= 20  # every module was walked, the families' among them
+    for mod in ("ops.mol", "nn.dense_lstm", "models.dense_latent", "models.srnn",
+                "models.vrnn", "models.svg"):
+        assert f"recurrent_flows_tpu_torch.{mod}" in names.split(), mod
     assert (sorted(build.iterdir()) if build.exists() else None) == before
 
 

@@ -164,6 +164,26 @@ def test_gates_kernel_matches_plain(cuda, b, h, w, hc, offset):
 
 
 @pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("b", [8, 32, 13])
+def test_gates_kernel_at_the_srnn_and_vrnn_shapes(cuda, b, offset):
+    # h = 256 at 8x8 (SRNN's lstm_h and lstm_a, VRNN's lstm at 64x64 frames):
+    # the request's B=8, the train step's B=32 and a ragged batch; one
+    # channel block of 256 threads per position
+    hc = 256
+    gates = _randn(cuda, (b, 8, 8, 4 * hc), offset)
+    c = _randn(cuda, (b, 8, 8, hc), offset)
+    peeps = [_randn(cuda, (1, 8, 8, hc), offset, 0.1) for _ in range(3)]
+    n = convlstm_gates.launches
+    got = convlstm_gates(gates, c, *peeps)
+    again = convlstm_gates(gates, c, *peeps)
+    torch.cuda.synchronize()
+    assert convlstm_gates.launches == n + 2
+    for a, a2, r in zip(got, again, convlstm_gates_ref(gates, c, *peeps)):
+        _close(a, r, 1e-5)
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("b", [8, 32, 7])
 def test_gates_kernel_at_kth_and_bair_width(cuda, b, offset):
     # h = 256 at 4x4: the request's B=8 and the train step's B=32, two
