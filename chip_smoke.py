@@ -77,7 +77,21 @@ configurations: A the preset as it is, B ``coupling_impl='fused'``, C
     ``predict`` (5 context + 10 predicted frames), ``reconstruct`` and
     ``sample`` (10 frames) of 8 sequences with exact launch counts and a
     profiled ``predict``; then the loss pieces, a ``predict`` and the
-    IW-ELBO on the card against the CPU at B=2.
+    IW-ELBO on the card against the CPU at B=2;
+13. the evaluation suite: the metrics (SSIM/PSNR/MSE of [8, 25, 64, 64, 1])
+    and the embedders (the LPIPS proxy, ``lpips_alex`` and I3D on
+    ``random_params(0)``, ``random3d``) against the CPU, with device times;
+    the eval CLI (``cli.eval_settings.main``, in this process) on phase
+    11's checkpoint with the thesis protocol (one batch of 8, 5 context and
+    25 predicted frames, 30 resamples, FVD over 13 with ``random3d``,
+    temperature 0.7): the wall ms and exact launches of each ``Evaluator``
+    method, the shares of ``get_eval_values`` in rollouts, metrics and
+    LPIPS, ``evaluations.json`` with the JAX CLI's keys and every number
+    finite; one profiled 25-frame rollout; ``get_eval_values``,
+    ``probability_future_bpp`` and ``elbo_gap`` card against CPU (B=2, 2
+    resamples, 3 predicted frames, replayed noise); then the CLI with the
+    default protocol on phase 12's ``srnn_mnist`` checkpoint (one batch of
+    8, 5 + 10 frames, 5 resamples, the IW-ELBO with K=20), exact launches.
 
 Any failure raises and the script exits non-zero. The last two lines of
 standard output are the kernels' JSON record (with each kernel's launches
@@ -1006,14 +1020,14 @@ def with_glow(mcfg, **glow):
     return dataclasses.replace(mcfg, glow=dataclasses.replace(mcfg.glow, **glow))
 
 
-def request_launches(mcfg, chain_scales, n_cond: int) -> dict:
-    """Launches of one request: the h-LSTM over the n_cond-1 warm-up frames
-    and once per predicted frame; per predicted frame one glowchain per
-    chain scale and K coupling tails per other scale (the sampling direction
-    has no folded 1x1)."""
-    return dict(actnorm_invconv=0, convlstm_gates=n_cond - 1 + N_PRED,
-                coupling_transform=mcfg.K * (mcfg.L - len(chain_scales)) * N_PRED,
-                glowchain=len(chain_scales) * N_PRED, glowstep=0)
+def request_launches(mcfg, chain_scales, n_cond: int, n_pred: int = N_PRED) -> dict:
+    """Launches of one request (a rollout of n_pred frames): the h-LSTM over
+    the n_cond-1 warm-up frames and once per predicted frame; per predicted
+    frame one glowchain per chain scale and K coupling tails per other scale
+    (the sampling direction has no folded 1x1)."""
+    return dict(actnorm_invconv=0, convlstm_gates=n_cond - 1 + n_pred,
+                coupling_transform=mcfg.K * (mcfg.L - len(chain_scales)) * n_pred,
+                glowchain=len(chain_scales) * n_pred, glowstep=0)
 
 
 def serve(model, mcfg, tcfg, rng, record, card, want, n_cond, label="request"):
@@ -1926,6 +1940,386 @@ def families(record) -> dict:
     return paths
 
 
+# phase 13: the evaluation suite on the card. The eval CLI runs in this
+# process on phase 11's and phase 12's `last` checkpoints; the thesis
+# protocol at rfn_mnist_production (5 context + 25 predicted frames, 30
+# resamples, FVD over 13 with random3d, temperature 0.7) on one batch of 8,
+# the default protocol (5 + 10, 5 resamples, one batch of 8) at srnn_mnist.
+EVAL_RFN_ARGS = ["--thesis_protocol", "--n_sequences", "8", "--no-debug_plot",
+                 "--fvd_embedder", "random3d", "--device", "cuda"]
+EVAL_SRNN_ARGS = ["--n_batches", "1", "--batch_size", "8", "--no-debug_plot",
+                  "--fvd_embedder", "random3d", "--device", "cuda"]
+EVAL_METHODS = ("get_eval_values", "get_loss", "get_fvd_values", "importance_weighted_elbo",
+                "probability_future_bpp", "elbo_gap")
+# the keys of the JAX CLI's evaluations.json (recurrent_flows_tpu/cli/
+# eval_settings.py and Evaluator.get_eval_values) with --no-debug_plot
+EVAL_KEYS = ({"bits_per_dim", "n_sequences", "dataset_bpd", "fvd", "_meta"}
+             | {f"{m}_{s}" for m in ("ssim", "psnr", "mse", "lpips")
+                for s in ("best", "mean", "best_summary")})
+EVAL_KEYS_RFN = EVAL_KEYS | {"probability_future", "elbo_gap"}
+EVAL_KEYS_SRNN = EVAL_KEYS | {"iw_elbo_k20"}
+# card against CPU through the Evaluator (B=2, 2 resamples, 2 context and 3
+# predicted frames, phase 11's fitted model, replayed noise): the metric
+# tracks of rollouts within phase 11's tolerance for an output that passes
+# the flow more than once, of 1 + |ref|; bits/dim and the diagnostics
+# (sums, as the train step's loss) within TOL_STEP_LOSS of 1 + the size of
+# the quantity they come from (a std or a difference by its mean's)
+TOL_EVAL_TRACK = TOL_LIFE_TWICE
+# the metrics and the proxies against the CPU (each element within
+# tol·(1+|ref|)): a window of 49 or a few 3x3 convs; the deep embedders
+# (AlexNet, I3D: 5 and 58 convs, sums of up to 5,184 terms) 1e-4
+TOL_EVAL_METRIC = 1e-5
+TOL_EVAL_EMBED = 1e-4
+
+
+def eval_launches(mcfg, chain_scales, n_cond, n_pred, resamples, frames) -> dict:
+    """Launches of each Evaluator method on one batch of RFN at
+    ``chain_impl='sample'`` (every forward flow on the module path): the
+    loss (no gradient) scans the h-LSTM over frames-1 transitions and runs
+    the forward flow per frame; probability_future scans the context and
+    runs the forward flow per future frame for each of the two latents;
+    elbo_gap (sample=False) scans all frames and runs the forward flow per
+    frame for each latent."""
+    roll = request_launches(mcfg, chain_scales, n_cond, n_pred)
+    loss = train_launches(mcfg, "A", False, frames - 1, ())
+    fwd = mcfg.L * mcfg.K
+    flows = lambda n, gates: dict(actnorm_invconv=n * fwd, convlstm_gates=gates,
+                                  coupling_transform=n * fwd, glowchain=0, glowstep=0)
+    return dict(rollout=roll, get_eval_values=add(times(roll, resamples), loss),
+                get_loss=times(loss, 3), get_fvd_values=roll,
+                probability_future_bpp=flows(2 * n_pred, n_cond - 1),
+                elbo_gap=flows(2 * (n_cond + n_pred - 1), n_cond + n_pred - 1))
+
+
+def srnn_eval_launches(n_pred, resamples, frames) -> dict:
+    """Launches of each Evaluator method on one batch of srnn_mnist:
+    ``predict`` as phase 12's; the no-grad loss and the IW-ELBO scan lstm_h
+    and lstm_a over frames-1 transitions, as the train step does."""
+    roll = family_launches("srnn_mnist", "predict", n_pred)
+    scan = family_launches("srnn_mnist", "train", frames)
+    return dict(rollout=roll, get_eval_values=add(times(roll, resamples), scan),
+                get_loss=times(scan, 3), get_fvd_values=roll, importance_weighted_elbo=scan)
+
+
+def add(*counts) -> dict:
+    """The sum of launch-count dicts."""
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def times(counts, n: int) -> dict:
+    return {k: n * v for k, v in counts.items()}
+
+
+class EvalTimers:
+    """Wall ms and kernel launches of each Evaluator method, and the wall ms
+    of its parts (rollouts, losses, metric tracks, LPIPS, FVD), each read
+    after a synchronisation, while in the context."""
+
+    def __init__(self):
+        self.methods, self.parts = {}, {}
+
+    def _wrap(self, owner, name, table, counted=False):
+        from recurrent_flows_tpu_torch import ops
+
+        inner = getattr(owner, name)
+
+        def timed(*a, **k):
+            before = ops.launch_counts() if counted else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*a, **k)
+            torch.cuda.synchronize()
+            row = table.setdefault(name, dict(ms=0.0, calls=0))
+            row["ms"] += (time.perf_counter() - t0) * 1e3
+            row["calls"] += 1
+            if counted:
+                row["launches"] = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            return out
+        self._saved.append((owner, name, inner))
+        setattr(owner, name, timed)
+
+    def __enter__(self):
+        from recurrent_flows_tpu_torch.evaluation import evaluator as ev
+
+        self._saved = []
+        for name in EVAL_METHODS:
+            self._wrap(ev.Evaluator, name, self.methods, counted=True)
+        for name in ("_predict", "_loss"):
+            self._wrap(ev.Evaluator, name, self.parts)
+        for name in ("eval_seq", "lpips_distance", "fvd"):
+            self._wrap(ev, name, self.parts)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, inner in reversed(self._saved):
+            setattr(owner, name, inner)
+
+
+def run_eval_cli(path, argv) -> tuple:
+    """``cli.eval_settings.main`` in this process on ``path`` (its printed
+    summary kept off this script's standard output). Returns (payload,
+    evaluations.json as read back, wall s, the EvalTimers)."""
+    import contextlib
+    import io
+
+    from recurrent_flows_tpu_torch.cli import eval_settings
+
+    t0 = time.perf_counter()
+    with EvalTimers() as timers, contextlib.redirect_stdout(io.StringIO()):
+        payload = eval_settings.main(["--path", str(path)] + argv)
+    wall = time.perf_counter() - t0
+    written = json.loads((Path(path) / "eval" / "evaluations.json").read_text())
+    return payload, written, wall, timers
+
+
+def check_evaluations(label, written, keys):
+    """The JAX CLI's keys, and every number finite."""
+    def numbers(d):
+        if isinstance(d, dict):
+            return [x for v in d.values() for x in numbers(v)]
+        if isinstance(d, list):
+            return list(np.ravel(np.asarray(d, dtype=float)))
+        return [] if isinstance(d, str) or d is None else [float(d)]
+
+    if set(written) != keys:
+        raise AssertionError(f"{label} evaluations.json: keys {sorted(set(written) ^ keys)} "
+                             "differ from the JAX CLI's")
+    bad = [k for k, v in written.items() if k != "_meta" and not np.isfinite(numbers(v)).all()]
+    if bad:
+        raise AssertionError(f"{label} evaluations.json: not finite in {bad}")
+
+
+def event_ms(fn, repeats: int = 5) -> float:
+    """Median wall of ``fn`` between two CUDA events, after two warm-ups."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(repeats):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check_eval_metrics(record):
+    """The metrics and the embedders on the card against the CPU, at the
+    protocol's shapes, each element within its tolerance of 1 + |ref|,
+    with device times: SSIM/PSNR/MSE of [8, 25, 64, 64, 1] frames, the LPIPS
+    proxy and lpips_alex (random_params(0)) on those 200 frames, random3d
+    and I3D (random_params(0)) on 16 clips of [13, 64, 64, 1] (I3D held
+    against the CPU on 2 of them)."""
+    import importlib
+
+    from recurrent_flows_tpu_torch.evaluation import alexnet_lpips, i3d, lpips, metrics
+
+    fvd_mod = importlib.import_module("recurrent_flows_tpu_torch.evaluation.fvd")
+    g = torch.Generator().manual_seed(13)
+    true = torch.rand(8, 25, 64, 64, 1, generator=g)
+    pred = torch.clamp(true + 0.2 * torch.randn(true.shape, generator=g), 0, 1)
+    clips = torch.rand(16, 13, 64, 64, 1, generator=g)
+    alex = alexnet_lpips.random_params(0)
+    i3d_params = i3d.random_params(0)
+    frames = lambda t: (t * 2 - 1).reshape(-1, 64, 64, 1)
+    cases = {
+        "eval_seq": (lambda a, b: tuple(metrics.eval_seq(a, b).values()), (true, pred),
+                     TOL_EVAL_METRIC),
+        "lpips_proxy": (lambda a, b: (lpips.lpips_distance(frames(a), frames(b),
+                                                           backend="random_features"),),
+                        (true, pred), TOL_EVAL_METRIC),
+        "lpips_alex": (lambda a, b: (alexnet_lpips.lpips_alex(alex, frames(a), frames(b)),),
+                       (true, pred), TOL_EVAL_EMBED),
+        "random3d": (lambda v: (fvd_mod._random3d_embed(v),), (clips,), TOL_EVAL_METRIC),
+        "i3d": (lambda v: (i3d.i3d_embed(v, i3d_params),), (clips[:2],), TOL_EVAL_EMBED),
+    }
+    rows = {}
+    for name, (fn, args, tol) in cases.items():
+        ref = fn(*args)
+        got = [o.cpu() for o in fn(*(a.cuda() for a in args))]
+        err = check_elementwise(f"{name} card vs CPU", got, ref, (tol,) * len(ref))
+        rows[name] = dict(max_abs_err=err, tol=tol)
+    timed = {"eval_seq": (cases["eval_seq"][0], (true, pred)),
+             "lpips_proxy": (cases["lpips_proxy"][0], (true, pred)),
+             "lpips_alex": (cases["lpips_alex"][0], (true, pred)),
+             "random3d": (cases["random3d"][0], (clips,)),
+             "i3d": (cases["i3d"][0], (clips,))}
+    for name, (fn, args) in timed.items():
+        dev = [a.cuda() for a in args]
+        rows[name]["ms"] = event_ms(lambda: fn(*dev))
+        rows[name]["shape"] = list(args[0].shape)
+    record["metrics_card_vs_cpu"] = rows
+    print("eval metrics and embedders, card vs CPU (max |err|, limit of 1+|ref|; ms on the "
+          "card): " + ", ".join(f"{k} {v['max_abs_err']:.2e} ({v['tol']:.0e}; "
+                                f"{v['ms']:.2f} ms at {v['shape']})" for k, v in rows.items()))
+
+
+def eval_card_vs_cpu(model, rng) -> dict:
+    """``get_eval_values`` (with LPIPS), ``probability_future_bpp`` and
+    ``elbo_gap`` of an Evaluator on the card against one on the CPU over a
+    copy of the model: the same batch (2 sequences of 5 frames of moving
+    squares), the CPU's draws replayed on the card, per (call, batch,
+    resample). Returns {quantity: {err, limit}} (err of 1+|scale|)."""
+    from recurrent_flows_tpu_torch.evaluation.evaluator import EvalSettings, Evaluator
+    from recurrent_flows_tpu_torch.utils import NoiseSource
+
+    x = torch.tensor(moving_squares(rng, 2, 5, model.cfg.image_size) - 0.5)
+    settings = EvalSettings(n_conditions=2, n_predictions=3, resamples=2, n_batches=1,
+                            batch_size=2)
+    post = lambda a: torch.clamp(a + 0.5, 0.0, 1.0)
+    records = {}
+
+    class Fixed:
+        def __init__(self, device):
+            self.device = device
+
+        def sample(self, generator, batch_size):
+            return x.to(self.device)
+
+    def record_noise(call, i, r):
+        seed = 1000 * len(records) + 17
+        rec = records[(call, i, r)] = RecordedNoise(
+            NoiseSource(generator=torch.Generator().manual_seed(seed)))
+        return rec
+
+    def replay(call, i, r):
+        return NoiseSource(replay=records[(call, i, r)].draws)
+
+    results = {}
+    for side, device, noise in (("cpu", "cpu", record_noise), ("card", "cuda", replay)):
+        m = copy.deepcopy(model).cpu() if device == "cpu" else model
+        ev = Evaluator(m, Fixed(device), settings, postprocess=post, device=device, noise=noise)
+        results[side] = dict(eval=ev.get_eval_values(with_lpips=True),
+                             probability_future=ev.probability_future_bpp(),
+                             elbo_gap=ev.elbo_gap())
+    errs = {}
+
+    def hold(key, got, ref, tol, scale=None):
+        got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+        scale = np.abs(ref) if scale is None else np.abs(np.asarray(scale, np.float64))
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"card vs CPU {key}: shape {got.shape} / {ref.shape} or "
+                                 "not finite")
+        errs[key] = dict(err=float((np.abs(got - ref) / (1.0 + scale)).max()), limit=tol)
+
+    cpu, card = results["cpu"], results["card"]
+    for m in ("ssim", "psnr", "mse", "lpips"):
+        for s in ("best", "mean"):
+            hold(f"{m}_{s}", card["eval"][f"{m}_{s}"], cpu["eval"][f"{m}_{s}"], TOL_EVAL_TRACK)
+    hold("bits_per_dim", card["eval"]["bits_per_dim"], cpu["eval"]["bits_per_dim"],
+         TOL_STEP_LOSS)
+    pf_c, pf_r = card["probability_future"], cpu["probability_future"]
+    for k in ("prior", "posterior"):
+        hold(f"bpp_{k}", pf_c[f"bpp_{k}"], pf_r[f"bpp_{k}"], TOL_STEP_LOSS)
+        hold(f"bpp_{k}_std", pf_c[f"bpp_{k}_std"], pf_r[f"bpp_{k}_std"], TOL_STEP_LOSS,
+             pf_r[f"bpp_{k}"])
+    eg_c, eg_r = card["elbo_gap"], cpu["elbo_gap"]
+    for k in ("nll_prior", "nll_posterior", "kld"):
+        hold(k, eg_c[k], eg_r[k], TOL_STEP_LOSS)
+    hold("amortization_gap", eg_c["amortization_gap"], eg_r["amortization_gap"],
+         TOL_STEP_LOSS, eg_r["nll_prior"].mean())
+    return errs
+
+
+def evaluation(rng, record) -> dict:
+    """Phase 13 (see the module docstring). Returns {path: launches}."""
+    from recurrent_flows_tpu_torch import ops
+    from recurrent_flows_tpu_torch.config import rfn_mnist_production
+    from recurrent_flows_tpu_torch.data import MovingMNIST
+    from recurrent_flows_tpu_torch.training.checkpoint import load_model_from_checkpoint
+    from recurrent_flows_tpu_torch.utils import NoiseSource
+
+    paths = {}
+    check_eval_metrics(record)
+
+    # the thesis protocol at rfn_mnist_production, phase 11's checkpoint
+    mcfg = with_glow(rfn_mnist_production()[0], chain_impl="sample")
+    chain_scales = range(1, mcfg.L)
+    n_cond, n_pred, resamples, batch = 5, 25, 30, BATCH
+    want = eval_launches(mcfg, chain_scales, n_cond, n_pred, resamples, n_cond + n_pred)
+    workdir = ROOT / "runs" / "chip_smoke_lifecycle"
+    ops.reset_launch_counts()
+    payload, written, wall, timers = run_eval_cli(workdir, EVAL_RFN_ARGS)
+    paths["eval_rfn"] = ops.launch_counts()
+    check_evaluations("rfn_mnist_production", written, EVAL_KEYS_RFN)
+    got = {k: v["launches"] for k, v in timers.methods.items()}
+    expected = {k: want[k] for k in got}
+    if got != expected or set(got) != set(EVAL_METHODS) - {"importance_weighted_elbo"}:
+        raise AssertionError(f"eval rfn_mnist_production: launches {got}, expected {expected}")
+    meta = written["_meta"]
+    if (meta["n_predictions"], meta["resamples"], written["n_sequences"]) != (
+            n_pred, resamples, batch) or written["fvd"]["embedder"] != "random3d":
+        raise AssertionError(f"eval rfn_mnist_production: protocol {meta}")
+    parts = timers.parts
+    gev_ms = timers.methods["get_eval_values"]["ms"]
+    rec = dict(wall_s=wall, methods=timers.methods, parts=parts,
+               launches_per_rollout=want["rollout"], summary={
+                   k: written[k] for k in ("bits_per_dim", "dataset_bpd", "fvd")})
+    rec["summary"].update({f"{m}_best": written[f"{m}_best_summary"]
+                           for m in ("ssim", "psnr", "mse", "lpips")})
+    # get_eval_values runs `resamples` of the rollouts (get_fvd_values one)
+    # and one of the losses (get_loss three)
+    gev_roll_ms = parts["_predict"]["ms"] * resamples / parts["_predict"]["calls"]
+    rec["get_eval_values_shares"] = dict(
+        rollouts=gev_roll_ms / gev_ms, metrics=parts["eval_seq"]["ms"] / gev_ms,
+        lpips=parts["lpips_distance"]["ms"] / gev_ms,
+        loss=parts["_loss"]["ms"] / parts["_loss"]["calls"] / gev_ms)
+    print(f"eval CLI, thesis protocol, rfn_mnist_production ({batch} sequences, {n_cond}+"
+          f"{n_pred} frames, {resamples} resamples): {wall:.1f} s; "
+          + ", ".join(f"{k} {v['ms']:.0f} ms" for k, v in timers.methods.items())
+          + f"; launches per 25-frame rollout {want['rollout']}; get_eval_values shares "
+          + ", ".join(f"{k} {v:.3f}" for k, v in rec["get_eval_values_shares"].items())
+          + f"; bits/dim {written['bits_per_dim']:.4f}, dataset {written['dataset_bpd']:.4f}, "
+          f"FVD (random3d, 13 frames) {written['fvd']['fvd']:.3f}, SSIM best "
+          f"{written['ssim_best_summary']['mean']:.4f}")
+
+    # one profiled 25-frame rollout of the served model
+    model, tcfg, _ = load_model_from_checkpoint(str(workdir / "model_folder" / "last"), 0.7,
+                                                device="cuda")
+    data = MovingMNIST(digit_bank="synthetic", digit_size=tcfg.digit_size,
+                       num_digits=tcfg.num_digits, seq_len=n_cond)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = data.sample(gen, batch) - 0.5
+    roll_median = parts["_predict"]["ms"] / parts["_predict"]["calls"]
+    prof = profile_call(lambda: counted("profiled rollout", lambda: model.predict(
+        x, n_pred, n_cond, NoiseSource(generator=gen)), want["rollout"]), roll_median)
+    rec["rollout_profile"] = prof
+    print_profile(f"25-frame rollout of {batch}", prof)
+
+    # card against the CPU through the Evaluator
+    errs = eval_card_vs_cpu(model, rng)
+    rec["card_vs_cpu"] = errs
+    print("eval card vs CPU (err of 1+|ref|; limit): "
+          + ", ".join(f"{k} {v['err']:.2e} ({v['limit']:.0e})" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v["err"] <= v["limit"]}
+    if bad:
+        raise AssertionError(f"eval: card and CPU disagree: {bad}")
+    record["rfn_mnist_production"] = rec
+    del model
+    torch.cuda.empty_cache()
+
+    # the default protocol at srnn_mnist, phase 12's checkpoint
+    workdir = ROOT / "runs" / "chip_smoke_srnn_mnist"
+    want = srnn_eval_launches(10, 5, 15)
+    ops.reset_launch_counts()
+    payload, written, wall, timers = run_eval_cli(workdir, EVAL_SRNN_ARGS)
+    paths["eval_srnn"] = ops.launch_counts()
+    check_evaluations("srnn_mnist", written, EVAL_KEYS_SRNN)
+    got = {k: v["launches"] for k, v in timers.methods.items()}
+    expected = {k: want[k] for k in got}
+    if got != expected or set(got) != set(want) - {"rollout"}:
+        raise AssertionError(f"eval srnn_mnist: launches {got}, expected {expected}")
+    record["srnn_mnist"] = dict(wall_s=wall, methods=timers.methods, parts=timers.parts,
+                                iw_elbo_k20=written["iw_elbo_k20"])
+    print(f"eval CLI, default protocol, srnn_mnist (8 sequences, 5+10 frames, 5 resamples): "
+          f"{wall:.1f} s; " + ", ".join(f"{k} {v['ms']:.0f} ms"
+                                        for k, v in timers.methods.items())
+          + f"; gates {paths['eval_srnn']['convlstm_gates']}; IW-ELBO (K=20) "
+          f"{written['iw_elbo_k20']:.2f}, bits/dim {written['bits_per_dim']:.4f}")
+    return paths
+
+
 SOURCES = {
     "coupling_transform": ("cuda", "recurrent_flows_tpu_torch/csrc/coupling.cu",
                            "recurrent_flows_tpu/ops/pallas/fused.py:75"),
@@ -2010,6 +2404,12 @@ def main() -> None:
         fam_gates = check_family_gates(record["families"])
     paths.update(families(record["families"]))
     print(f"families done at {time.perf_counter() - t_start:.0f} s")
+    record["evaluation"] = {}
+    t0 = time.perf_counter()
+    paths.update(evaluation(rng, record["evaluation"]))
+    record["evaluation"]["phase_s"] = time.perf_counter() - t0
+    print(f"evaluation done at {time.perf_counter() - t_start:.0f} s "
+          f"(phase 13: {record['evaluation']['phase_s']:.0f} s)")
 
     launches = {name: sum(p[name] for p in paths.values()) for name in SOURCES}
     never = [name for name in SOURCES if launches[name] == 0]
@@ -2018,10 +2418,14 @@ def main() -> None:
     on_families = [path for path in ("srnn_mnist_train", "srnn_mnist_predict",
                                      "vrnn_mnist_train", "vrnn_mnist_predict")
                    if paths[path]["convlstm_gates"] == 0]
-    if never or on_bair or on_families:
+    on_eval = [name for name in ("actnorm_invconv", "convlstm_gates", "coupling_transform",
+                                 "glowchain") if paths["eval_rfn"][name] == 0]
+    on_eval += ["convlstm_gates (srnn)"] * (paths["eval_srnn"]["convlstm_gates"] == 0)
+    if never or on_bair or on_families or on_eval:
         raise AssertionError(f"kernels the main paths never launched: {never}; "
                              f"that rfn_bair never launched: {on_bair}; family paths "
-                             f"without the gates: {on_families}")
+                             f"without the gates: {on_families}; that evaluation never "
+                             f"launched: {on_eval}")
     max_err = {name: max(kernels[name]["max_abs_err"], new[name]["max_abs_err"])
                for name in SOURCES}
     max_err["convlstm_gates"] = max(max_err["convlstm_gates"], fam_gates["max_abs_err"])

@@ -7,6 +7,7 @@ import contextlib
 import math
 
 import torch
+import torch.nn.functional as F
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -25,6 +26,20 @@ def float32_precision():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def pad_same(x: torch.Tensor, kernel, stride, value: float = 0.0) -> torch.Tensor:
+    """Pad the last ``len(kernel)`` axes of a channels-first x as
+    TensorFlow's (and ``lax``'s) SAME padding does: per axis of size n a
+    total of max((ceil(n/s)-1)·s + k - n, 0), the odd element at the end
+    (PyTorch's own ``padding='same'`` is symmetric and takes no stride).
+    Convolve or pool the result with no padding; a max-pool pads with
+    -inf."""
+    pads = []
+    for n, k, s in zip(reversed(x.shape[-len(kernel):]), reversed(kernel), reversed(stride)):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads, value=value) if any(pads) else x
 
 
 def split_feature(x: torch.Tensor, kind: str = "split"):

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import torch_parity_utils as U
+from torch_parity_utils import _two_torch_threads  # noqa: F401 (autouse fixture)
 from recurrent_flows_tpu.config import GlowConfig
 from recurrent_flows_tpu.flows import modules as jmod
 from recurrent_flows_tpu.flows.glow import GlowStep as JGlowStep

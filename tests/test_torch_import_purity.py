@@ -1,5 +1,5 @@
 """Importing the port pulls in neither JAX nor Triton, initialises no CUDA
-context and builds nothing."""
+context and builds nothing; nor does building the eval CLI's parser."""
 
 import os
 import re
@@ -21,6 +21,10 @@ bad = [m for m in sys.modules if m in ("jax", "recurrent_flows_tpu")
        or m.startswith(("jax.", "triton", "recurrent_flows_tpu."))]
 assert not bad, bad
 assert not torch.cuda.is_initialized()
+from recurrent_flows_tpu_torch.cli import eval_settings
+assert eval_settings.build_parser().parse_args(["--path", "x"]).device == "cuda"
+assert not torch.cuda.is_initialized()
+assert not any(m == "matplotlib" or m.startswith("matplotlib.") for m in sys.modules)
 print(len(names), " ".join(names))
 """
 
@@ -35,7 +39,10 @@ def test_importing_every_module_keeps_jax_triton_and_cuda_out(tmp_path):
     count, names = out.stdout.split(maxsplit=1)
     assert int(count) >= 20  # every module was walked, the families' among them
     for mod in ("ops.mol", "nn.dense_lstm", "models.dense_latent", "models.srnn",
-                "models.vrnn", "models.svg"):
+                "models.vrnn", "models.svg", "evaluation.metrics", "evaluation.lpips",
+                "evaluation.alexnet_lpips", "evaluation.i3d", "evaluation.fvd",
+                "evaluation.evaluator", "evaluation.averagemodel", "cli.common",
+                "cli.eval_settings"):
         assert f"recurrent_flows_tpu_torch.{mod}" in names.split(), mod
     assert (sorted(build.iterdir()) if build.exists() else None) == before
 

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import torch_parity_utils as U
+from torch_parity_utils import _two_torch_threads  # noqa: F401 (autouse fixture)
 from recurrent_flows_tpu_torch.convert import tree_from_flax
 from recurrent_flows_tpu_torch.models import RFN
 from recurrent_flows_tpu_torch.utils import NoiseSource

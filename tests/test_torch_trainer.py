@@ -34,6 +34,7 @@ import pytest
 import torch
 
 import torch_parity_utils as U
+from torch_parity_utils import _two_torch_threads  # noqa: F401 (autouse fixture)
 from recurrent_flows_tpu.flows.ddi import data_dependent_init as jax_ddi
 from recurrent_flows_tpu.models import RFN as JRFN
 from recurrent_flows_tpu.training import schedules as jsched

@@ -17,10 +17,10 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import torch_parity_utils as U
+from torch_parity_utils import _two_torch_threads  # noqa: F401 (the modules import it from here)
 from recurrent_flows_tpu.config import SRNNConfig, SVGConfig, VRNNConfig
 from recurrent_flows_tpu.models.srnn import SRNN as JSRNN
 from recurrent_flows_tpu.models.svg import SVG as JSVG
@@ -30,15 +30,6 @@ from recurrent_flows_tpu_torch import models as port_models
 B, T, IMG = 2, 4, 16
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Under pytest-xdist several workers share the host's cores; torch
-    ops this small lose more to contention between their threads than
-    they gain, so each module using these helpers runs torch on two."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 JAX_MODELS = {"SRNN": JSRNN, "VRNN": JVRNN, "SVG": JSVG}
 
 

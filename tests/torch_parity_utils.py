@@ -14,6 +14,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from recurrent_flows_tpu.config import GlowConfig, RFNConfig, TrainConfig
@@ -24,6 +25,17 @@ from recurrent_flows_tpu_torch.convert import from_flax
 # the module path and scales 1-2 (16x16, 8x8) the chain kernel
 IMG, CIN, L, K = 64, 1, 3, 2
 HD, ZD, U = 8, 4, 16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Under pytest-xdist several workers share the host's cores; torch
+    ops this small lose more to contention between their threads than
+    they gain, so a module that imports this fixture runs torch on two."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def tiny_rfn_config(**overrides) -> RFNConfig:
