@@ -91,7 +91,25 @@ configurations: A the preset as it is, B ``coupling_impl='fused'``, C
     ``probability_future_bpp`` and ``elbo_gap`` card against CPU (B=2, 2
     resamples, 3 predicted frames, replayed noise); then the CLI with the
     default protocol on phase 12's ``srnn_mnist`` checkpoint (one batch of
-    8, 5 + 10 frames, 5 resamples, the IW-ELBO with K=20), exact launches.
+    8, 5 + 10 frames, 5 resamples, the IW-ELBO with K=20), exact launches;
+14. the training CLIs (``cli.main_*.main``, in this process, under
+    ``runs/chip_smoke_cli/``): ``main_rfn`` at its defaults (K=15, L=5,
+    with_skip, B=32, T=10) on Moving MNIST made on the card, 1 epoch of 2
+    steps (ms, peak GiB and exact launches per step), then
+    ``--load_model`` (the loaded state bit for bit the saved one, the
+    counter going on), the eval CLI on that checkpoint (one batch of 8, 2
+    resamples, ``random3d``, exact launches per method); the kernels at the
+    CLI's shapes against their plain versions (the gates at h = 256 on 2x2,
+    the coupling and the folded 1x1 at B=32, ``glowchain`` at K=15 on the
+    checkpoint's parameters) and 3 requests of the checkpoint served with
+    ``chain_impl='sample'``; one step each of ``--choose_data shapes``,
+    ``kth`` and ``bair`` (the last two on PNG trees the phase writes, with
+    the loader's host ms per batch); ``main_srnn``, ``main_vrnn`` and
+    ``main_svg`` at their defaults (2 steps, exact gates launches);
+    ``Trainer.train_epoch(1, profile_dir=...)`` (the Chrome trace parses
+    and holds CUDA kernels); ``--multigpu`` in a one-process NCCL group
+    against the same build and step without it, bit for bit. A plot
+    failure (no matplotlib) is printed by ``fit`` and recorded.
 
 Any failure raises and the script exits non-zero. The last two lines of
 standard output are the kernels' JSON record (with each kernel's launches
@@ -2320,6 +2338,446 @@ def evaluation(rng, record) -> dict:
     return paths
 
 
+# phase 14: the training CLIs (``cli.main_*``, in this process) at their
+# defaults under runs/chip_smoke_cli/: RFN is K=15, L=5, h=256, z=5,
+# with_skip, the 8-8-pool-16... extractor, batch-norm feature nets, B=32,
+# T=10, chain_impl 'off' (no CLI flag sets it): a step runs the module path
+# at every scale, and so does the rollout of the eval CLI on its checkpoint
+CLI_DIR = ROOT / "runs" / "chip_smoke_cli"
+CLI_EPOCH = ["--n_epochs", "1", "--steps_per_epoch", "2"]
+CLI_EVAL_ARGS = ["--n_batches", "1", "--batch_size", "8", "--resamples", "2",
+                 "--no-debug_plot", "--fvd_embedder", "random3d", "--device", "cuda"]
+# the PNG trees the phase writes (64x64 frames, gray for KTH, RGB for BAIR)
+CLI_PNG_VIDEOS, CLI_PNG_FRAMES = 4, 12
+
+
+class CliTimers:
+    """While in the context: each ``Trainer.train_step`` is synchronised and
+    timed, with its peak memory and its launches; each PNG loader's batch
+    is timed on the host; ``Trainer.load`` keeps a copy of the state it
+    loaded."""
+
+    def __enter__(self):
+        from recurrent_flows_tpu_torch import ops
+        from recurrent_flows_tpu_torch.data import KTH, PushDataset
+        from recurrent_flows_tpu_torch.training import Trainer
+
+        self.steps, self.batch_ms, self.loaded = [], [], None
+        self._saved = [(Trainer, "train_step"), (Trainer, "load"), (KTH, "sample_numpy"),
+                       (PushDataset, "sample_numpy")]
+        self._saved = [(owner, name, getattr(owner, name)) for owner, name in self._saved]
+        step, load, kth, push = (inner for _, _, inner in self._saved)
+
+        def timed_step(tr, *a, **k):
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = step(tr, *a, **k)
+            m = {key: float(v) for key, v in out.items()}
+            torch.cuda.synchronize()
+            self.steps.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches={key: v - before[key] for key, v in ops.launch_counts().items()}, **m))
+            return out
+
+        def kept_load(tr, name="last"):
+            out = load(tr, name)
+            self.loaded = dict(
+                model={key: v.clone() for key, v in tr.model.state_dict().items()},
+                adam={i: {key: v.clone() for key, v in s.items()}
+                      for i, s in tr.optimizer.state_dict()["state"].items()},
+                counter=tr.counter)
+            return out
+
+        def host_timed(inner):
+            def sample_numpy(loader, *a, **k):
+                t0 = time.perf_counter()
+                out = inner(loader, *a, **k)
+                self.batch_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return sample_numpy
+
+        Trainer.train_step, Trainer.load = timed_step, kept_load
+        KTH.sample_numpy, PushDataset.sample_numpy = host_timed(kth), host_timed(push)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, inner in self._saved:
+            setattr(owner, name, inner)
+
+
+def run_cli(label, module, argv, want_step, record):
+    """``module.main(argv)`` with the launch counts set to 0 before it and
+    read after it, every step's launches held to ``want_step``, its printed
+    lines kept. Returns (the trainer, the run's launches)."""
+    import contextlib
+    import io
+
+    from recurrent_flows_tpu_torch import ops
+
+    printed = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with CliTimers() as timers, contextlib.redirect_stdout(printed):
+        tr = module.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    bad = [s["launches"] for s in timers.steps if s["launches"] != want_step]
+    if bad or not timers.steps or not np.isfinite(tr.losses).all():
+        raise AssertionError(f"{label}: step launches {bad[:1]}, expected {want_step}; "
+                             f"{len(timers.steps)} steps, losses {tr.losses}")
+    lines = printed.getvalue().splitlines()
+    rec = dict(argv=argv, wall_s=wall, steps=timers.steps, launches_per_step=want_step,
+               launches=launches, printed=lines)
+    if timers.batch_ms:
+        rec["loader_batch_ms"] = timers.batch_ms
+    record[label] = rec
+    last = timers.steps[-1]
+    print(f"{label}: {wall:.1f} s, {len(timers.steps)} steps, last {last['ms']:.1f} ms, peak "
+          f"{last['peak_gib']:.2f} GiB, loss {last['loss']:.1f}, launches per step "
+          f"{want_step}" + (f", loader {statistics.median(timers.batch_ms):.1f} ms per batch"
+                            if timers.batch_ms else "") + f"; printed {lines}")
+    return tr, launches, timers
+
+
+def write_png_tree(choice, root, rng, size: int):
+    """A KTH (gray) or BAIR (RGB) tree of moving squares, size x size PNGs,
+    in the layout each loader reads."""
+    from recurrent_flows_tpu_torch.data.png import write_png
+
+    ch = 1 if choice == "kth" else 3
+    videos = moving_squares(rng, CLI_PNG_VIDEOS, CLI_PNG_FRAMES, size, ch)
+    for v, frames in enumerate(videos):
+        d = (root / "processed" / "boxing" / f"person{v + 1:02d}_boxing_d1" if choice == "kth"
+             else root / "train" / "traj_0_to_255" / str(v))
+        d.mkdir(parents=True)
+        for i, f in enumerate(frames):
+            img = np.round(f * 255).astype(np.uint8)
+            write_png(str(d / (f"image-{i:03d}.png" if choice == "kth" else f"{i}.png")),
+                      img[..., 0] if ch == 1 else img)
+
+
+def check_cli_kernels(model, record) -> dict:
+    """The gates, the coupling and the folded 1x1 at the shapes the CLI's
+    RFN gives them (the gates at h = 256 on 2x2, new; the flow's five
+    scales at B=32 forward, the coupling also at B=8 in reverse), and the
+    glowchain kernel at K=15 on the checkpoint's own stacked parameters at
+    the scales its gate takes at B=8 (1-4; the with_skip conditions widen
+    cond to 64-384), each against its plain version within the tolerances
+    of phase 3, with device times beside bounds. Returns per kernel the
+    worst error and the rows."""
+    from recurrent_flows_tpu_torch.flows.glow import kernel_fits
+    from recurrent_flows_tpu_torch.ops import (
+        actnorm_invconv, actnorm_invconv_ref, convlstm_gates, convlstm_gates_ref,
+        coupling_transform, coupling_transform_ref, glowchain, glowchain_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    rnd = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale
+    out = {}
+
+    def add(name, row):
+        t = out.setdefault(name, dict(max_abs_err=0.0, rows=[]))
+        t["max_abs_err"] = max(t["max_abs_err"], row["err"])
+        t["rows"].append(row)
+
+    for b in (32, BATCH):
+        gates, c = rnd(b, 2, 2, 1024), rnd(b, 2, 2, 256)
+        peeps = [rnd(1, 2, 2, 256, scale=0.1) for _ in range(3)]
+        e = check_elementwise(f"convlstm_gates [{b},2,2,1024]", convlstm_gates(gates, c, *peeps),
+                              convlstm_gates_ref(gates, c, *peeps), (TOL_ELEMENTWISE,) * 2)
+        check_repeats(f"convlstm_gates [{b},2,2,1024]", lambda: convlstm_gates(gates, c, *peeps))
+        n_bytes = nbytes(gates, c, *peeps, c, c)
+        add("convlstm_gates", dict(shape=list(gates.shape), err=e,
+                                   ms=small_ms(lambda: convlstm_gates(gates, c, *peeps)),
+                                   plain_ms=small_ms(lambda: convlstm_gates_ref(gates, c, *peeps)),
+                                   **bound(n_bytes, 25 * c.numel())))
+    scales = [(32 >> l, 4 << l) for l in range(5)]
+    for shape, rev, (z2, shift, s) in coupling_cases(
+            rnd, [(32, hw, c // 2, False) for hw, c in scales]
+            + [(BATCH, hw, c // 2, True) for hw, c in scales]):
+        e = check_elementwise(f"coupling_transform {shape} reverse={rev}",
+                              coupling_transform(z2, shift, s, rev),
+                              coupling_transform_ref(z2, shift, s, rev),
+                              (TOL_ELEMENTWISE, TOL_COUPLING_LD))
+        add("coupling_transform", dict(
+            shape=shape, reverse=rev, err=e,
+            ms=small_ms(lambda: coupling_transform(z2, shift, s, rev)),
+            plain_ms=small_ms(lambda: coupling_transform_ref(z2, shift, s, rev)),
+            **bound(nbytes(z2, shift, s, z2) + 4 * shape[0], 4 * z2.numel())))
+    for hw, c in scales:
+        x = rnd(32 * hw * hw, c)
+        bias, logs = rnd(c, scale=0.3), rnd(c, scale=0.3)
+        w = torch.linalg.qr(rnd(c, c))[0].contiguous()
+        e = check_elementwise(f"actnorm_invconv [{x.shape[0]}, {c}]",
+                              (actnorm_invconv(x, bias, logs, w),),
+                              (actnorm_invconv_ref(x, bias, logs, w),), (TOL_INVCONV,))
+        times = ainv_times(actnorm_invconv, x, bias, logs, w)
+        add("actnorm_invconv", dict(
+            shape=list(x.shape), err=e, ms=times["ms"], library_ms=times["library_ms"],
+            plain_ms=small_ms(lambda: actnorm_invconv_ref(x, bias, logs, w)),
+            **bound(nbytes(x, bias, logs, w, x), 2 * x.numel() * c + 2 * x.numel())))
+    flow = model.flow
+    with torch.no_grad():
+        for l, (hw, c, cc) in enumerate(flow.scale_shapes):
+            if not kernel_fits(model.cfg.glow, BATCH, hw, hw, c, cc):
+                continue
+            p, _ = flow.chain_params(l, reverse=True)
+            p = type(p)(*(t.detach().contiguous() for t in p))
+            x, cond = rnd(BATCH, hw, hw, c), rnd(BATCH, hw, hw, cc)
+            name = f"glowchain K={model.cfg.K} [{BATCH},{hw},{hw},{c}] cond {cc}"
+            got = glowchain(x, cond, p, "realnvp", True)
+            e = check_elementwise(name, got, glowchain_ref(x, cond, p, "realnvp", True),
+                                  (TOL_CHAIN, TOL_CHAIN))
+            check_repeats(name, lambda: glowchain(x, cond, p, "realnvp", True))
+            add("glowchain", dict(
+                shape=[BATCH, hw, hw, c], cond=cc, K=model.cfg.K, reverse=True, err=e,
+                ms=cuda_ms(lambda: glowchain(x, cond, p, "realnvp", True), iters=5),
+                plain_ms=cuda_ms(lambda: glowchain_ref(x, cond, p, "realnvp", True), iters=5),
+                **bound(nbytes(x, cond, *p, x) + 4 * BATCH,
+                        model.cfg.K * glowstep_flops(x, cond, model.cfg.glow.n_units_affine))))
+    for name, t in out.items():
+        print(f"{name} at the CLI's shapes: max |err| {t['max_abs_err']:.3e}; "
+              + ", ".join(f"{r['shape']}{' cond ' + str(r['cond']) if 'cond' in r else ''}"
+                          f"{' rev' if r.get('reverse') else ''} {r['ms']:.5f} ms (plain "
+                          f"{r['plain_ms']:.5f}, bound {r['bound_ms']:.6f} {r['bound_by']})"
+                          for r in t["rows"]))
+    if len(out.get("glowchain", {}).get("rows", [])) != 4:
+        raise AssertionError("glowchain was not checked at the four scales it fits")
+    record["kernels"] = out
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def multigpu_vs_plain(record):
+    """``--multigpu`` in a one-process NCCL group (the torchrun environment
+    set by hand) against the same CLI run without it: the CLI's own
+    ``setup_training`` (build with the data-dependent init) and one
+    ``train_epoch`` of one step each; the loss and every parameter and
+    buffer equal bit for bit. Returns (the plain trainer, launches of the
+    data-parallel run)."""
+    import os
+
+    from recurrent_flows_tpu_torch import ops
+    from recurrent_flows_tpu_torch.cli import common, main_rfn
+    from recurrent_flows_tpu_torch.models import RFN
+    from recurrent_flows_tpu_torch.parallel import initialize
+
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    runs = {}
+    # cuDNN's default backward algorithms may sum with atomics: two runs of
+    # the plain step can differ in the last bits, whatever the group does
+    cudnn = torch.backends.cudnn
+    saved_cudnn, cudnn.deterministic = cudnn.deterministic, True
+    for name in ("multigpu", "plain"):
+        argv = CLI_EPOCH + ["--path", str(CLI_DIR / name)] + (
+            ["--multigpu"] if name == "multigpu" else [])
+        args = main_rfn.build_parser().parse_args(argv)
+        cfg = main_rfn.config_from_args(args)
+        make = lambda device: RFN(cfg, device=device,
+                                  generator=torch.Generator().manual_seed(args.seed))
+        saved = {k: os.environ.get(k) for k in env}
+        dp = None
+        try:
+            if args.multigpu:
+                os.environ.update(env)
+                dp = initialize(args.device)
+                if dp is None or dp.world != 1 or torch.distributed.get_backend() != "nccl":
+                    raise AssertionError(f"multigpu: no one-process NCCL group ({dp})")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            tr = common.setup_training(make, args, dp)
+            tr.train_epoch(1)
+            torch.cuda.synchronize()
+            runs[name] = dict(trainer=tr, s=time.perf_counter() - t0,
+                              launches=ops.launch_counts())
+        finally:
+            if dp is not None:
+                dp.close()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    cudnn.deterministic = saved_cudnn
+    a, b = (runs[n]["trainer"] for n in ("multigpu", "plain"))
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    unequal = [n for n in sa if not torch.equal(sa[n], sb[n])]
+    if unequal or a.losses != b.losses or a.counter != 1:
+        raise AssertionError(f"multigpu: differs from the plain run in {unequal[:8]}, losses "
+                             f"{a.losses} / {b.losses}")
+    record["multigpu"] = dict(losses=a.losses, tensors=len(sa), seconds={
+        n: r["s"] for n, r in runs.items()}, launches=runs["multigpu"]["launches"])
+    print(f"multigpu (one-process NCCL group) vs plain: build and one step, loss {a.losses}, "
+          f"{len(sa)} tensors bit-equal; {runs['multigpu']['s']:.1f} s vs "
+          f"{runs['plain']['s']:.1f} s")
+    del a, runs
+    return b, record["multigpu"]["launches"]
+
+
+def training_clis(rng, record) -> tuple:
+    """Phase 14 (see the module docstring). Returns ({path: launches}, the
+    kernel checks at the CLI's shapes)."""
+    import shutil
+
+    from recurrent_flows_tpu_torch import ops
+    from recurrent_flows_tpu_torch.cli import main_rfn, main_srnn, main_svg, main_vrnn
+    from recurrent_flows_tpu_torch.models import RFN
+    from recurrent_flows_tpu_torch.serving import Predictor
+    from recurrent_flows_tpu_torch.training.checkpoint import load_model_from_checkpoint
+    from recurrent_flows_tpu_torch.utils import float32_precision
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    paths = {}
+    defaults = main_rfn.build_parser().parse_args([])
+    mcfg = main_rfn.config_from_args(defaults)
+    frames, img = defaults.n_frames, mcfg.image_size
+    want = train_launches(mcfg, "A", True, frames - 1, ())
+
+    # main_rfn at its defaults, then --load_model
+    rfn_dir = CLI_DIR / "rfn"
+    first, paths["cli_rfn"], _ = run_cli("cli_rfn", main_rfn, CLI_EPOCH + [
+        "--path", str(rfn_dir)], want, record)
+    status = (rfn_dir / "model_folder" / "status.txt").read_text().splitlines()
+    meta = json.loads((rfn_dir / "model_folder" / "last" / "meta.json").read_text())
+    if (first.counter, meta["counter"]) != (2, 2) or not status[0].startswith("data_source "):
+        raise AssertionError(f"cli_rfn: counter {first.counter}, saved {meta['counter']}, "
+                             f"status {status}")
+    n_params = sum(p.numel() for p in first.model.parameters())
+    saved_model = {k: v.clone() for k, v in first.model.state_dict().items()}
+    saved_adam = first.optimizer.state_dict()["state"]
+    del first
+    torch.cuda.empty_cache()
+    resumed, paths["cli_rfn_load"], timers = run_cli(
+        "cli_rfn_load", main_rfn, CLI_EPOCH + ["--path", str(rfn_dir), "--load_model"],
+        want, record)
+    got = timers.loaded
+    unequal = [k for k in saved_model if not torch.equal(saved_model[k], got["model"][k])]
+    unequal += [f"adam {i} {k}" for i in saved_adam for k in saved_adam[i]
+                if not torch.equal(saved_adam[i][k].cpu(), got["adam"][i][k].cpu())]
+    if unequal or got["counter"] != 2 or resumed.counter != 4 or resumed.epoch_i != 2:
+        raise AssertionError(f"--load_model: loaded state differs in {unequal[:8]}; counter "
+                             f"{got['counter']} -> {resumed.counter}")
+    print(f"--load_model: {len(saved_model)} tensors and {len(saved_adam)} Adam states "
+          f"bit-equal, counter 2 -> {resumed.counter}; {n_params} parameters")
+    record["cli_rfn"]["parameters"] = n_params
+    del resumed, saved_model, saved_adam, timers
+    torch.cuda.empty_cache()
+
+    # the eval CLI on that checkpoint: chain_impl 'off', so no glowchain
+    ops.reset_launch_counts()
+    _, written, wall, timers = run_eval_cli(rfn_dir, CLI_EVAL_ARGS)
+    paths["cli_eval"] = ops.launch_counts()
+    check_evaluations("cli eval", written, EVAL_KEYS_RFN)
+    # the eval CLI's defaults: 5 context and 10 predicted frames
+    want_eval = eval_launches(mcfg, (), 5, 10, 2, max(frames, 15))
+    got_eval = {k: v["launches"] for k, v in timers.methods.items()}
+    if got_eval != {k: want_eval[k] for k in got_eval} or not got_eval:
+        raise AssertionError(f"cli eval: launches {got_eval}, expected {want_eval}")
+    record["cli_eval"] = dict(wall_s=wall, methods=timers.methods,
+                              launches_per_rollout=want_eval["rollout"])
+    print(f"eval CLI on the CLI's checkpoint (8 sequences, 5+10 frames, 2 resamples): "
+          f"{wall:.1f} s; launches per rollout {want_eval['rollout']}; "
+          + ", ".join(f"{k} {v['ms']:.0f} ms" for k, v in timers.methods.items()))
+
+    # glowchain at K=15: the kernel on the checkpoint's parameters, then a
+    # served request of the checkpoint with chain_impl='sample'
+    model, tcfg, _ = load_model_from_checkpoint(str(rfn_dir / "model_folder" / "last"),
+                                                device="cuda")
+    with float32_precision():
+        checks = check_cli_kernels(model, record.setdefault("cli_shapes", {}))
+    chained = RFN(with_glow(model.cfg, chain_impl="sample"), device="cuda")
+    chained.load_state_dict(model.state_dict())
+    del model
+    chain_scales = [l for l in range(mcfg.L) if chained.flow.chain_eligible(l, BATCH)]
+    pred = Predictor(chained, tcfg, n_conditions=N_COND, n_predictions=N_PRED)
+    pred.warmup(batch_size=BATCH)
+    want_req = request_launches(mcfg, chain_scales, N_COND, N_PRED)
+    ops.reset_launch_counts()
+    times_ms = []
+    for i in range(N_REQUESTS):
+        ctx = moving_squares(rng, BATCH, N_COND, img)
+        t0 = time.perf_counter()
+        out = counted(f"chained request {i}", lambda: pred.predict(ctx), want_req)
+        torch.cuda.synchronize()
+        times_ms.append((time.perf_counter() - t0) * 1e3)
+        check_frames(f"chained request {i}", out, (BATCH, N_PRED, img, img, 1))
+    paths["cli_chain_request"] = ops.launch_counts()
+    record["cli_chain_request"] = dict(ms=times_ms, chain_scales=chain_scales,
+                                       launches_per_request=want_req)
+    print(f"the CLI's checkpoint served with chain_impl='sample' (scales {chain_scales}): "
+          f"median {statistics.median(times_ms):.1f} ms per request of {BATCH}, launches "
+          f"{want_req}")
+    del pred, chained
+    torch.cuda.empty_cache()
+
+    # the other data sources, one step each
+    one = ["--n_epochs", "1", "--steps_per_epoch", "1"]
+    _, paths["cli_shapes"], _ = run_cli("cli_shapes", main_rfn, one + [
+        "--choose_data", "shapes", "--path", str(CLI_DIR / "shapes")], want, record)
+    for choice in ("kth", "bair"):
+        root = CLI_DIR / f"{choice}_data"
+        write_png_tree(choice, root, rng, img)
+        _, paths[f"cli_{choice}"], _ = run_cli(f"cli_{choice}", main_rfn, one + [
+            "--choose_data", choice, "--data_root", str(root),
+            "--path", str(CLI_DIR / choice)], want, record)
+    torch.cuda.empty_cache()
+
+    # the other families at their defaults
+    for name, module in (("srnn", main_srnn), ("vrnn", main_vrnn), ("svg", main_svg)):
+        per_step = family_launches(f"{name}_mnist", "train", frames)
+        tr, paths[f"cli_{name}"], _ = run_cli(f"cli_{name}", module, CLI_EPOCH + [
+            "--path", str(CLI_DIR / name)], per_step, record)
+        if name == "srnn":
+            profiled = tr
+        else:
+            del tr
+        torch.cuda.empty_cache()
+
+    # Trainer.train_epoch(1, profile_dir=...) on the SRNN CLI's trainer
+    prof_dir = CLI_DIR / "profile"
+    profiled.train_epoch(1, profile_dir=str(prof_dir))
+    files = sorted(prof_dir.glob("*.pt.trace.json"))
+    events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    gates = [e for e in kernels if "gates_kernel" in e.get("name", "")]
+    if not kernels or not gates:
+        raise AssertionError(f"trace: files {files}, {len(kernels)} kernel events, "
+                             f"{len(gates)} of the gates")
+    record["trace"] = dict(file=files[0].name, bytes=files[0].stat().st_size,
+                           events=len(events), kernel_events=len(kernels),
+                           gates_events=len(gates))
+    print(f"train_epoch(1, profile_dir): {files[0].name}, {files[0].stat().st_size} bytes, "
+          f"{len(events)} events, {len(kernels)} CUDA kernels ({len(gates)} gates)")
+    del profiled
+    torch.cuda.empty_cache()
+
+    # --multigpu in a one-process NCCL group against the plain run
+    plain, paths["cli_multigpu"] = multigpu_vs_plain(record)
+    del plain
+    torch.cuda.empty_cache()
+    never = {path: [k for k in kinds if paths[path][k] == 0] for path, kinds in (
+        ("cli_rfn", ("actnorm_invconv", "convlstm_gates", "coupling_transform")),
+        ("cli_eval", ("convlstm_gates", "coupling_transform")),
+        ("cli_chain_request", ("glowchain",)),
+        ("cli_srnn", ("convlstm_gates",)), ("cli_vrnn", ("convlstm_gates",)),
+        ("cli_multigpu", ("actnorm_invconv", "convlstm_gates", "coupling_transform")))}
+    never = {k: v for k, v in never.items() if v}
+    if never:
+        raise AssertionError(f"phase 14 paths that never launched their kernels: {never}")
+    return paths, checks
+
+
 SOURCES = {
     "coupling_transform": ("cuda", "recurrent_flows_tpu_torch/csrc/coupling.cu",
                            "recurrent_flows_tpu/ops/pallas/fused.py:75"),
@@ -2410,6 +2868,13 @@ def main() -> None:
     record["evaluation"]["phase_s"] = time.perf_counter() - t0
     print(f"evaluation done at {time.perf_counter() - t_start:.0f} s "
           f"(phase 13: {record['evaluation']['phase_s']:.0f} s)")
+    record["training_clis"] = {}
+    t0 = time.perf_counter()
+    cli_paths, cli_checks = training_clis(rng, record["training_clis"])
+    paths.update(cli_paths)
+    record["training_clis"]["phase_s"] = time.perf_counter() - t0
+    print(f"training CLIs done at {time.perf_counter() - t_start:.0f} s "
+          f"(phase 14: {record['training_clis']['phase_s']:.0f} s)")
 
     launches = {name: sum(p[name] for p in paths.values()) for name in SOURCES}
     never = [name for name in SOURCES if launches[name] == 0]
@@ -2429,13 +2894,16 @@ def main() -> None:
     max_err = {name: max(kernels[name]["max_abs_err"], new[name]["max_abs_err"])
                for name in SOURCES}
     max_err["convlstm_gates"] = max(max_err["convlstm_gates"], fam_gates["max_abs_err"])
+    for name, t in cli_checks.items():
+        max_err[name] = max(max_err[name], t["max_abs_err"])
     line = {"kernels": [
         dict(name=name, route=route, source=source, replaces=replaces,
              launches=launches[name],
              launches_by_path={path: p[name] for path, p in paths.items()},
              **{**kernels[name], "max_abs_err": max_err[name]},
              bair_kth_shapes=new[name],
-             **({"srnn_vrnn_shapes": fam_gates["rows"]} if name == "convlstm_gates" else {}))
+             **({"srnn_vrnn_shapes": fam_gates["rows"]} if name == "convlstm_gates" else {}),
+             **({"cli_shapes": cli_checks[name]["rows"]} if name in cli_checks else {}))
         for name, (route, source, replaces) in SOURCES.items()],
         "launch_floor_ms": record["launch_floor_ms"]}
     record.update(line, total_s=time.perf_counter() - t_start)

@@ -30,6 +30,7 @@ import types
 import numpy as np
 import torch
 
+from ..data.framecache import FrameCache
 from ..evaluation.evaluator import EvalSettings, Evaluator
 from ..training.checkpoint import load_model_from_checkpoint
 from ..training.trainer import preprocess
@@ -83,8 +84,9 @@ def apply_thesis_protocol(args):
 
 class _ModelSpaceData:
     """The test sampler of a frozen train config, in model space on the
-    device: Moving MNIST is made there; a frame cache's host batch (drawn
-    with a seed from the generator) is moved there."""
+    device: Moving MNIST and the shapes are made there; a frame cache's host
+    batch (drawn with a seed from the generator) and a PNG loader's (drawn
+    by its own seeded state) are moved there."""
 
     def __init__(self, raw, tcfg, device):
         self.raw, self.tcfg, self.device = raw, tcfg, torch.device(device)
@@ -93,6 +95,8 @@ class _ModelSpaceData:
         t = self.tcfg
         if hasattr(self.raw, "sample"):
             x = self.raw.sample(generator, batch_size)
+        elif not isinstance(self.raw, FrameCache):
+            x = torch.as_tensor(self.raw.sample_numpy(batch_size), device=self.device)
         else:
             if batch_size > self.raw.batch_size:
                 raise ValueError(f"the frame cache holds batches of {self.raw.batch_size}, "

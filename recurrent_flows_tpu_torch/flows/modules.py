@@ -22,6 +22,7 @@ from torch import nn
 from ..nn.layers import Conv2d, act, conv_nhwc
 from ..ops.fused import actnorm_invconv, coupling_transform
 from ..ops.glowstep import clamp
+from ..parallel.data_parallel import batch_mean
 from ..utils.numerics import batch_reduce, normal_log_prob, split_feature
 from ..utils.running_stats import ema_, flow_stats_update
 
@@ -53,7 +54,8 @@ class ActNorm(nn.Module):
 class BatchNormFlow(nn.Module):
     """RealNVP-style batch-norm bijection with per-position parameters and
     running statistics, all [H, W, C]. The forward in training mode
-    normalises with the batch's mean and biased variance over axis 0, eps
+    normalises with the batch's mean and biased variance over axis 0 (the
+    global batch's in a data-parallel step: ``parallel.batch_mean``), eps
     added into the variance (and into what the running variance stores);
     otherwise, and always in reverse, with the running statistics. These
     update, r <- momentum·r + (1-momentum)·batch, only inside
@@ -71,8 +73,8 @@ class BatchNormFlow(nn.Module):
 
     def forward(self, x, logdet=None, training: bool = True):
         if training:
-            mean = x.mean(0)
-            var = (x - mean).square().mean(0) + self.eps
+            mean = batch_mean(x, 0)
+            var = batch_mean((x - mean).square(), 0) + self.eps
             if flow_stats_update():
                 ema_(self.running_mean, mean, self.momentum)
                 ema_(self.running_var, var, self.momentum)
@@ -175,7 +177,8 @@ class Conv2dNorm(nn.Module):
     actnorm folded into the kernel, conv_{W·e^logs}(x) + b·e^logs; the DDI
     pass runs it unfolded, on the raw conv output. 'batchnorm': the conv
     with its bias, then a batch norm over (B, H, W) with the batch's
-    statistics only (biased variance, eps 1e-5) and ``bn_scale``/``bn_bias``.
+    statistics only (biased variance, eps 1e-5; the global batch's in a
+    data-parallel step) and ``bn_scale``/``bn_bias``.
     'none': the conv with its bias."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
@@ -195,8 +198,8 @@ class Conv2dNorm(nn.Module):
         if self.norm != "actnorm":
             y = conv_nhwc(x, self.conv.kernel, self.conv.bias)
             if self.norm == "batchnorm":
-                mean = y.mean((0, 1, 2), keepdim=True)
-                var = (y - mean).square().mean((0, 1, 2), keepdim=True)
+                mean = batch_mean(y, (0, 1, 2), keepdim=True)
+                var = batch_mean((y - mean).square(), (0, 1, 2), keepdim=True)
                 y = (y - mean) * torch.rsqrt(var + 1e-5) * self.bn_scale + self.bn_bias
             return y
         if ddi:

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.data_parallel import batch_mean
 from ..utils.running_stats import ema_, layer_stats_update
 
 
@@ -139,7 +140,8 @@ class Dense(nn.Module):
 
 class NormLayer(nn.Module):
     """{batchnorm | instancenorm | none}. Batch norm normalises with the
-    current batch's statistics over axes (0,1,2), biased variance, eps 1e-5
+    current batch's statistics over axes (0,1,2) (of the global batch in a
+    data-parallel step: ``parallel.batch_mean``), biased variance, eps 1e-5
     inside the rsqrt. With ``track_running_stats`` it also keeps running
     averages in torch's convention (momentum 0.1, new = (1-m)·old +
     m·batch, the unbiased variance), updated only in a refresh pass
@@ -166,12 +168,15 @@ class NormLayer(nn.Module):
     def forward(self, x, use_running_average: bool = False):
         if self.norm_type == "none":
             return x
-        axes = (0, 1, 2) if self.norm_type == "batchnorm" else (1, 2)
         if self.track and use_running_average:
             mean, var = self.running_mean, self.running_var
         else:
-            mean = x.mean(axes, keepdim=True)
-            var = (x - mean).square().mean(axes, keepdim=True)
+            if self.norm_type == "batchnorm":
+                moment = lambda t: batch_mean(t, (0, 1, 2), keepdim=True)
+            else:
+                moment = lambda t: t.mean((1, 2), keepdim=True)
+            mean = moment(x)
+            var = moment((x - mean).square())
             if self.track and layer_stats_update():
                 n = x.shape[0] * x.shape[1] * x.shape[2]
                 ema_(self.running_mean, mean.reshape(-1), 1.0 - self.momentum)

@@ -20,6 +20,18 @@ device="cuda")`` in place of the RFN.
 an iterable of batches [B,T,H,W,C] in [0, 1] (numpy arrays or tensors; a
 tensor on the device stays there).
 
+Data-parallel (``dp``, a ``parallel.DataParallel``; ``torchrun`` and the
+CLIs' ``--multigpu``): ``tcfg.batch_size`` is the global batch. Rank 0
+runs the one-process program: it draws every batch and the
+data-dependent init, then sends each batch to all ranks
+(``DataParallel.scatter``); every rank trains on its slice with noise of
+its own. The batch norms of a step take the global batch's statistics,
+the gradients and the logged metrics are averaged over the ranks
+(``parallel/data_parallel.py``), and ``build`` broadcasts rank 0's
+initialised model. Only rank 0 refreshes running statistics, plots and
+writes files (folders, checkpoints, ``status.txt``, ``metrics.jsonl``).
+One rank computes what one process computes, bit for bit.
+
 A step runs in full float32 with TF32 off, forward and backward
 (``utils.float32_precision``), as the JAX package computes. It moves no
 running statistic (they update only in ``build`` and ``refresh_stats``),
@@ -28,6 +40,7 @@ and Adam steps the parameters only, never the buffers.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -40,7 +53,7 @@ import torch
 from ..flows.ddi import data_dependent_init
 from ..models import split_reconstruction
 from ..utils.numerics import NoiseSource, float32_precision
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, trace
 from ..utils.running_stats import has_running_stats
 from .checkpoint import load_state, read_meta, save_checkpoint
 from .schedules import BetaSchedule, EarlyStopping, PlateauScheduler, linear_lr
@@ -79,6 +92,14 @@ def bits_per_dim(kl, nll, dims: int, t: int):
     return (kl + nll) / (math.log(2.0) * dims * t)
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s generator: ``seed`` on rank 0 (the
+    one-process stream), another stream on every other rank."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence((seed, rank)).generate_state(1, np.uint64)[0] >> 1)
+
+
 def clip_by_global_norm_(grads, max_norm: float):
     """Scale ``grads`` in place so that their global L2 norm is at most
     ``max_norm``: g·max_norm/‖g‖ where ‖g‖ >= max_norm, untouched below
@@ -98,17 +119,21 @@ class Trainer:
     ``plotter`` need it).
 
     The noise of the loss and the generated batches come from one
-    ``torch.Generator`` on the device, seeded with ``tcfg.seed``; ``build``,
+    ``torch.Generator`` on the device, seeded with ``tcfg.seed`` (another
+    seed on a data-parallel rank other than 0, ``rank_seed``); ``build``,
     ``train_step`` and ``plot_rows`` take a ``NoiseSource`` in its place
-    (tests replay the JAX package's draws).
+    (tests replay the JAX package's draws). ``dp`` makes the trainer one
+    rank of a data-parallel group (module docstring).
     """
 
-    def __init__(self, model, tcfg, data, workdir: str | None = None, device="cuda"):
+    def __init__(self, model, tcfg, data, workdir: str | None = None, device="cuda",
+                 dp=None):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.tcfg = tcfg
         self.data = data
         self.workdir = workdir
+        self.dp = dp
         self.losses: list = []
         self.kl_hist: list = []
         self.recon_hist: list = []
@@ -124,9 +149,15 @@ class Trainer:
                                         tcfg.factor_lr, tcfg.min_lr)
         self.early = EarlyStopping(tcfg.patience_es)
         self.step_timer = StepTimer()
-        self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(tcfg.seed, dp.rank if dp is not None else 0))
         self.optimizer = None
         self._aux_iter = None
+
+    @property
+    def primary(self) -> bool:
+        """This process writes the files (no group, or rank 0)."""
+        return self.dp is None or self.dp.primary
 
     def _to_model_space(self, batch):
         t = self.tcfg
@@ -160,15 +191,17 @@ class Trainer:
         (where the flow has BatchNormFlows: ``model.init_running_stats``),
         then the data-dependent init of the flow's ActNorms (in place); then
         the Adam optimizer. A model without ``ddi`` (SRNN, VRNN, SVG) takes
-        no batch here: its ``init`` leaves running statistics at 0 and 1."""
-        if self.workdir is not None:
+        no batch here: its ``init`` leaves running statistics at 0 and 1.
+        Data-parallel, rank 0 initialises and every rank then takes its
+        parameters and buffers."""
+        if self.workdir is not None and self.primary:
             for sub in ("png_folder", "model_folder"):
                 os.makedirs(self._folder(sub), exist_ok=True)
         glow = getattr(self.model.cfg, "glow", None)
         init_stats = (hasattr(self.model, "init_running_stats") and glow is not None
                       and glow.flow_norm == "batchnorm")
         run_ddi = run_ddi and hasattr(self.model, "ddi")
-        if init_stats or run_ddi:
+        if (init_stats or run_ddi) and self.primary:
             x = self._to_model_space(self._host_batch())
             noise = noise or NoiseSource(generator=self.generator)
             with float32_precision():
@@ -176,6 +209,8 @@ class Trainer:
                     self.model.init_running_stats(x, noise)
                 if run_ddi:
                     data_dependent_init(self.model, x, noise)
+        if self.dp is not None:
+            self.dp.broadcast_(self.model)
         self.optimizer = self._adam()
         return self
 
@@ -184,27 +219,32 @@ class Trainer:
 
     def train_step(self, batch, beta: float, lr: float,
                    noise: NoiseSource | None = None) -> dict:
-        """One optimizer step on ``batch`` [B, T, H, W, C] in [0, 1].
-        Returns loss, kl, nll and bits (per dimension) as 0-d tensors on
-        the device; reading them waits for the step."""
-        tcfg = self.tcfg
+        """One optimizer step on ``batch`` [B, T, H, W, C] in [0, 1] (this
+        rank's slice of the global batch where data-parallel). Returns loss,
+        kl, nll and bits (per dimension, averaged over the ranks) as 0-d
+        tensors on the device; reading them waits for the step."""
+        tcfg, dp = self.tcfg, self.dp
         x = self._to_model_space(batch)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
-        with float32_precision():
+        with float32_precision(), (dp.global_batch_stats() if dp is not None
+                                   else contextlib.nullcontext()):
             out = self.model.loss(
                 x, noise or NoiseSource(generator=self.generator))
             loss = out["nll"] + beta * out["kl_free_bits"]
             loss.backward()
+        if dp is not None:
+            dp.average_(p.grad for p in self.model.parameters() if p.grad is not None)
         if tcfg.grad_clip > 0:
             clip_by_global_norm_([p.grad for p in self.model.parameters()
                                   if p.grad is not None], tcfg.grad_clip)
         self.optimizer.step()
         dims = x.shape[2] * x.shape[3] * x.shape[4]
         kl, nll = out["kl"].detach(), out["nll"].detach()
-        return dict(loss=loss.detach(), kl=kl, nll=nll,
-                    bits=bits_per_dim(kl, nll, dims, x.shape[1] - 1))
+        metrics = dict(loss=loss.detach(), kl=kl, nll=nll,
+                       bits=bits_per_dim(kl, nll, dims, x.shape[1] - 1))
+        return dp.mean_metrics(metrics) if dp is not None else metrics
 
     def refresh_stats(self, noise: NoiseSource | None = None) -> None:
         """Update the running statistics (``model.stats_refresh``, TF32
@@ -218,30 +258,35 @@ class Trainer:
             self.model.stats_refresh(
                 x, noise or NoiseSource(generator=self.generator))
 
-    def train_epoch(self, steps: int | None = None) -> float:
+    def train_epoch(self, steps: int | None = None, profile_dir: str | None = None) -> float:
         """Up to ``steps`` optimizer steps (a generator makes a batch per
         step; an iterable is read from its start and may end first) with
         beta and the learning rate from the schedules. The metrics are read
         from the device once, at the end; one step in 50 is also timed to
-        the device's end (``step_timer``). Returns the running mean loss
+        the device's end (``step_timer``). With ``profile_dir`` the epoch
+        runs under ``utils.profiling.trace``. Returns the running mean loss
         per frame."""
+        with trace(profile_dir):
+            return self._run_epoch(steps if steps is not None else self.tcfg.steps_per_epoch)
+
+    def _run_epoch(self, steps: int) -> float:
         tcfg = self.tcfg
-        steps = steps if steps is not None else tcfg.steps_per_epoch
         generator = hasattr(self.data, "sample")
-        it = None if generator else iter(self.data)
+        it = None if generator or not self.primary else iter(self.data)
         pending = []
         t0 = time.perf_counter()
         for step_i in range(steps):
             time_this = step_i % 50 == 0
             if time_this:
                 self.step_timer.start()
-            if generator:
-                batch = self.data.sample(self.generator, tcfg.batch_size)
-            else:
-                try:
-                    batch = next(it)
-                except StopIteration:
-                    break
+            batch = None
+            if self.primary:  # data-parallel, rank 0 draws for every rank
+                batch = (self.data.sample(self.generator, tcfg.batch_size) if generator
+                         else next(it, None))
+            if self.dp is not None:
+                batch = self.dp.scatter(batch)
+            if batch is None:
+                break
             beta = self.beta_schedule(self.counter)
             if tcfg.scheduler_type == "linear":
                 lr, self.stop = linear_lr(tcfg.learning_rate, self.counter,
@@ -273,12 +318,13 @@ class Trainer:
         ``fit``: after each, the plots (a failure is printed, never
         raised), ``last`` every ``tcfg.checkpoint_every`` epochs, at the
         last epoch and on a stop, ``best`` from epoch 51 on, the plateau
-        schedule and ``status``."""
+        schedule and ``status`` (plots and files on rank 0 only where
+        data-parallel)."""
         n_epochs = n_epochs if n_epochs is not None else self.tcfg.n_epochs
         for _ in range(n_epochs):
             self.epoch_i += 1
             epoch_loss = self.train_epoch()
-            if plot and self.epoch_i % plot_every == 0:
+            if plot and self.epoch_i % plot_every == 0 and self.primary:
                 try:
                     self.plotter()
                 except Exception as e:  # plotting must never kill training
@@ -306,7 +352,10 @@ class Trainer:
         running statistics refreshed first so that the sampling direction
         of the saved model sees trained ones. A failed refresh raises and
         saves nothing: a checkpoint with stale statistics would be served
-        with ``eval_norm`` as if they were trained."""
+        with ``eval_norm`` as if they were trained. Data-parallel, only
+        rank 0 refreshes and saves."""
+        if not self.primary:
+            return
         self.refresh_stats()
         cfg = getattr(self.model, "cfg", None)
         meta = dict(
@@ -349,7 +398,9 @@ class Trainer:
 
     def status(self, epoch_loss: float):
         """Append the epoch's record to ``metrics.jsonl`` and its line to
-        ``status.txt``, with the JAX package's fields."""
+        ``status.txt``, with the JAX package's fields (rank 0 only)."""
+        if not self.primary:
+            return
         beta_now = self.beta_schedule(self.counter)
         last = lambda h: h[-1] if h else None
         rec = dict(epoch=self.epoch_i, loss=epoch_loss, kl=last(self.kl_hist),

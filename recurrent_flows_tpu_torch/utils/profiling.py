@@ -1,6 +1,10 @@
-"""Step timing, the counterpart of ``StepTimer`` in
-``recurrent_flows_tpu.utils.profiling`` (its ``trace`` is not ported:
-ROADMAP.md queue 1, item 7, ``torch.profiler``).
+"""Step timing and tracing, the counterparts of ``StepTimer`` and
+``trace`` in ``recurrent_flows_tpu.utils.profiling``.
+
+``trace(profile_dir)`` records a region with ``torch.profiler`` (host
+operators, and the CUDA kernels where there is a card) and writes a Chrome
+trace, ``<profile_dir>/<host>_<pid>.<ms>.pt.trace.json``, which
+TensorBoard's profiler plugin and Perfetto read; ``None`` records nothing.
 
 Two measurements, because a step's host time under asynchronous launches
 says when the step was queued, not when it ran:
@@ -16,6 +20,7 @@ says when the step was queued, not when it ran:
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -63,3 +68,20 @@ class StepTimer:
                        drain_p95_s=float(np.percentile(a, 95)),
                        drain_n=len(a))
         return out
+
+
+@contextlib.contextmanager
+def trace(profile_dir: str | None):
+    """Record the block under ``torch.profiler`` (CPU, and CUDA where a card
+    is available) into a Chrome trace under ``profile_dir``; a no-op with
+    ``None``."""
+    if profile_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        yield

@@ -1,5 +1,7 @@
 """Importing the port pulls in neither JAX nor Triton, initialises no CUDA
-context and builds nothing; nor does building the eval CLI's parser."""
+context and builds nothing; nor does building the eval CLI's parser. The
+data package and the training CLIs import no matplotlib either: the card's
+machine has none."""
 
 import os
 import re
@@ -42,9 +44,29 @@ def test_importing_every_module_keeps_jax_triton_and_cuda_out(tmp_path):
                 "models.vrnn", "models.svg", "evaluation.metrics", "evaluation.lpips",
                 "evaluation.alexnet_lpips", "evaluation.i3d", "evaluation.fvd",
                 "evaluation.evaluator", "evaluation.averagemodel", "cli.common",
-                "cli.eval_settings"):
+                "cli.eval_settings", "cli.main_rfn", "cli.main_srnn", "cli.main_vrnn",
+                "cli.main_svg", "data.shapes", "data.kth", "data.bair", "data.png",
+                "parallel.distributed", "parallel.data_parallel"):
         assert f"recurrent_flows_tpu_torch.{mod}" in names.split(), mod
     assert (sorted(build.iterdir()) if build.exists() else None) == before
+
+
+_TRAINING_PATH = """
+import sys
+import recurrent_flows_tpu_torch.data
+from recurrent_flows_tpu_torch.cli import main_rfn, main_srnn, main_svg, main_vrnn
+for mod in (main_rfn, main_srnn, main_svg, main_vrnn):
+    mod.build_parser().parse_args([])
+bad = [m for m in sys.modules if m.split(".")[0] in ("matplotlib", "PIL", "jax")]
+assert not bad, bad
+"""
+
+
+def test_data_and_training_clis_import_no_matplotlib(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _TRAINING_PATH], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_sources_never_import_jax_or_triton_at_module_level():
