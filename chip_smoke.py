@@ -27,8 +27,12 @@ configurations: A the preset as it is, B ``coupling_impl='fused'``, C
    the launch plan of every shape and a second launch that must repeat
    the first bit for bit; the coupling and the folded 1x1 also at the
    served batch (B=8) of every scale, as ``reconstruct`` and the
-   diagnostics run them, checked and not timed; then each kernel's
-   autograd Function against autograd through its plain version;
+   diagnostics run them, checked and not timed; the host µs of one eager
+   call through each kernel's ``torch.library`` operator (``rft::``) at
+   every timed shape; then each kernel's registered autograd formula
+   against autograd through its plain version, and
+   ``torch.library.opcheck`` of each operator with CUDA tensors at one
+   small shape;
 4. serving: warm-up plus 3 requests of 8 sequences through ``Predictor``,
    with the launch count of every kernel per request, then one more
    request under ``torch.profiler`` (device busy time, idle share, device
@@ -60,7 +64,9 @@ configurations: A the preset as it is, B ``coupling_impl='fused'``, C
     it builds and fits 2 epochs of 2 steps (the largest |x| of a flow
     sample before the build, after it and after fit; launches per step as
     phase 6's step A; losses, ``status.txt``, ``metrics.jsonl``, the ``last``
-    checkpoint), then the plots' device part; a fresh ``Trainer`` loads
+    checkpoint, and its plots: ``losses.png`` and ``samples<n>.png`` decode
+    with ``read_png``, no plot failure), then the plots' device part; a
+    fresh ``Trainer`` loads
     ``last`` bit for bit and takes a step; ``Predictor.from_checkpoint``
     answers 3 requests each of ``predict``, ``reconstruct`` and ``sample``
     with exact launch counts and one profiled ``reconstruct``; then
@@ -102,14 +108,26 @@ configurations: A the preset as it is, B ``coupling_impl='fused'``, C
     CLI's shapes against their plain versions (the gates at h = 256 on 2x2,
     the coupling and the folded 1x1 at B=32, ``glowchain`` at K=15 on the
     checkpoint's parameters) and 3 requests of the checkpoint served with
-    ``chain_impl='sample'``; one step each of ``--choose_data shapes``,
-    ``kth`` and ``bair`` (the last two on PNG trees the phase writes, with
-    the loader's host ms per batch); ``main_srnn``, ``main_vrnn`` and
+    ``chain_impl='sample'``; one step of ``--choose_data shapes``; for
+    ``kth`` and ``bair``, on PNG trees the phase writes with row filters 3
+    and 4, one step through the PNG loader, then both splits' blobs built
+    by ``cli.build_framecache.main`` and one step through ``FrameCache``
+    (the loader's host ms per batch of both); ``main_srnn``, ``main_vrnn`` and
     ``main_svg`` at their defaults (2 steps, exact gates launches);
     ``Trainer.train_epoch(1, profile_dir=...)`` (the Chrome trace parses
     and holds CUDA kernels); ``--multigpu`` in a one-process NCCL group
-    against the same build and step without it, bit for bit. A plot
-    failure (no matplotlib) is printed by ``fit`` and recorded.
+    against the same build and step without it, bit for bit. Every CLI
+    run's plots decode with ``read_png`` and none failed;
+15. the serving export: phase 11's checkpoint exported by
+    ``cli.export_serving.main`` and phase 12's ``srnn_mnist`` one by
+    ``Predictor.export`` (B=8, 5 context + 10 predicted frames; seconds to
+    export and to load, the artifact's bytes, its ``rft::`` nodes); each
+    artifact served by ``load_exported`` for 3 requests with exact launches
+    per request, equal to the eager request's, and frames equal bit for bit
+    to ``Predictor(seed=s).predict`` on the same checkpoint and context
+    (with deterministic cuDNN algorithms for that comparison: by default
+    SRNN's transposed convs sum with atomics, and two eager requests
+    differ in the last bits).
 
 Any failure raises and the script exits non-zero. The last two lines of
 standard output are the kernels' JSON record (with each kernel's launches
@@ -119,8 +137,10 @@ per path) and the device record; the full record is written to
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import statistics
 import subprocess
@@ -140,8 +160,8 @@ TOL_CHAIN = 1e-4  # 10 chained steps of 3 convs each
 TOL_CHAIN_LD = 1e-4  # summed coupling logdets of 10 steps
 TOL_STEP = 1e-4  # one GlowStep: 3 convs, sums of up to 2,592 terms
 TOL_INVCONV = 1e-5  # a C-term sum per output
-# gradients through an autograd Function against autograd through the plain
-# version: the same backward arithmetic from forward values that differ by
+# gradients through a kernel operator's registered backward against autograd
+# through the plain version: the same backward arithmetic from forward values that differ by
 # the kernel's rounding
 TOL_GRAD = 1e-4
 # train step on the card against the CPU (B=2, 3 frames, full width): each
@@ -313,12 +333,16 @@ def coupling_cases(rnd, shapes):
 def coupling_times(fn, z2, shift, s, reverse) -> dict:
     """Device ms of ``fn(z2, shift, s, reverse)`` on the views and on
     contiguous copies of z2 and shift, beside an in-place add over a tensor
-    of z2's size (``add_ms``: one elementwise pass over as much data)."""
+    of z2's size (``add_ms``: one elementwise pass over as much data), and
+    the host µs of one eager call on the views under ``no_grad``
+    (``host_us``)."""
     dz2, dshift = z2.contiguous(), shift.contiguous()
     add = torch.zeros(z2.shape, device=z2.device)
+    with torch.no_grad():
+        host_us = eager_us(lambda: fn(z2, shift, s, reverse))
     return dict(ms=small_ms(lambda: fn(z2, shift, s, reverse)),
                 contiguous_ms=small_ms(lambda: fn(dz2, dshift, s, reverse)),
-                add_ms=small_ms(lambda: add.add_(1.0)))
+                add_ms=small_ms(lambda: add.add_(1.0)), host_us=host_us)
 
 
 def folded_linear(bias, logs, w):
@@ -329,14 +353,31 @@ def folded_linear(bias, logs, w):
 
 def ainv_times(fn, x, bias, logs, w) -> dict:
     """Device ms of ``fn(x, bias, logs, w)`` beside ``F.linear`` on the
-    folded weights (``library_ms``) and an in-place add over x (``add_ms``)."""
+    folded weights (``library_ms``) and an in-place add over x (``add_ms``),
+    and the host µs of one eager call under ``no_grad`` (``host_us``)."""
     import torch.nn.functional as F
 
     wf, sh = folded_linear(bias, logs, w)
     add = torch.zeros_like(x)
+    with torch.no_grad():
+        host_us = eager_us(lambda: fn(x, bias, logs, w))
     return dict(ms=small_ms(lambda: fn(x, bias, logs, w)),
                 library_ms=small_ms(lambda: F.linear(x, wf, sh)),
-                add_ms=small_ms(lambda: add.add_(1.0)))
+                add_ms=small_ms(lambda: add.add_(1.0)), host_us=host_us)
+
+
+def call_us(fn, calls: int = 50) -> float:
+    """Host µs of one eager call of ``fn`` alone, for the kernels whose
+    device time exceeds their host time: the median over ``calls`` calls
+    of ``time.perf_counter`` around the call, the device idle before each."""
+    times = []
+    for _ in range(calls + 5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times[5:])
 
 
 def eager_us(fn, calls: int = 1000) -> float:
@@ -560,7 +601,8 @@ def check_kernels(model, record):
               f"{row['ms']:.5f} ms on the views ({row['ms'] / floor:.2f} floors), "
               f"{row['contiguous_ms']:.5f} on contiguous copies, in-place add "
               f"{row['add_ms']:.5f}, plain {row['plain_ms']:.5f}, "
-              f"bound {row['bound_ms']:.6f} ({row['bound_by']})")
+              f"bound {row['bound_ms']:.6f} ({row['bound_by']}), {row['host_us']:.1f} µs "
+              "of host per eager call")
         for k in t:
             t[k] += row[k]
     for shape, rev, (z2, shift, s) in coupling_cases(rnd, COUPLING_CHECKED):
@@ -652,7 +694,8 @@ def check_kernels(model, record):
                   f"{row['ms']:.5f} ms ({row['ms'] / floor:.2f} floors), in-place add "
                   f"{row['add_ms']:.5f}, plain {row['plain_ms']:.5f}, F.linear "
                   f"{row['library_ms']:.5f}, "
-                  f"bound {row['bound_ms']:.6f} ({row['bound_by']})")
+                  f"bound {row['bound_ms']:.6f} ({row['bound_by']}), {row['host_us']:.1f} µs "
+                  "of host per eager call")
             for k in t:
                 t[k] += row[k]
         # the served batch (B=8) at every scale, as reconstruct and the
@@ -742,6 +785,7 @@ def check_kernels(model, record):
                     check_repeats(f"glowchain scale {l} forward",
                                   lambda: glowchain(x, cond, ps, "realnvp", False))
                     row = dict(scale=l, shape=list(x.shape),
+                               host_us=call_us(lambda: glowstep(x, cond, preps[0], "realnvp", False)),
                                ms=cuda_ms(lambda: glowstep(x, cond, preps[0], "realnvp", False)),
                                plain_ms=cuda_ms(lambda: glowstep_ref(x, cond, preps[0], "realnvp", False)),
                                n_bytes=nbytes(x, cond, *preps[0], x) + 4 * TRAIN_BATCH,
@@ -750,7 +794,7 @@ def check_kernels(model, record):
                     record["glowstep_ms"].append(row)
                     print(f"glowstep scale {l} forward B={TRAIN_BATCH}: {row['ms']:.3f} ms, "
                           f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-                          f"({row['bound_by']})")
+                          f"({row['bound_by']}), {row['host_us']:.1f} µs of host per call")
                     for k in step_t:
                         step_t[k] += row[k]
                     row = dict(scale=l,
@@ -767,6 +811,7 @@ def check_kernels(model, record):
                     check_repeats(f"glowchain scale {l} reverse",
                                   lambda: glowchain(x, cond, ps, "realnvp", True))
                     row = dict(scale=l,
+                               host_us=call_us(lambda: glowchain(x, cond, ps, "realnvp", True)),
                                ms=cuda_ms(lambda: glowchain(x, cond, ps, "realnvp", True), iters=10),
                                plain_ms=cuda_ms(lambda: glowchain_ref(x, cond, ps, "realnvp", True), iters=10),
                                n_bytes=nbytes(x, cond, *ps, x) + 4 * BATCH,
@@ -775,7 +820,7 @@ def check_kernels(model, record):
                     record["glowchain_ms"].append(row)
                     print(f"glowchain scale {l} reverse B={BATCH}: {row['ms']:.3f} ms, "
                           f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-                          f"({row['bound_by']})")
+                          f"({row['bound_by']}), {row['host_us']:.1f} µs of host per call")
                     for k in chain_t:
                         chain_t[k] += row[k]
     kernels["glowstep"] = dict(
@@ -784,13 +829,20 @@ def check_kernels(model, record):
     kernels["glowchain"] = dict(
         max_abs_err=chain_worst, ms=chain_t["ms"], plain_ms=chain_t["plain_ms"],
         library_ms=None, **bound(chain_t["n_bytes"], chain_t["flops"]))
+    # host µs per eager call through each kernel's operator, at every shape
+    # timed above (no_grad, as the rollout calls them)
+    record["op_host_us"] = {name: [round(r["host_us"], 2) for r in record[key]] for name, key in (
+        ("coupling_transform", "coupling_transform"), ("actnorm_invconv", "actnorm_invconv"),
+        ("convlstm_gates", "convlstm_gates"), ("glowstep", "glowstep_ms"),
+        ("glowchain", "glowchain_ms"))}
+    print(f"host µs per eager call through the operators: {record['op_host_us']}")
     return kernels
 
 
 def check_gradients(model):
-    """Each kernel's autograd Function against autograd through its plain
-    version, on a random projection of every output, at the train step's
-    scale-2 shapes (B=30, 8x8x16, cond 64)."""
+    """Each kernel's registered autograd formula (``ops.library``) against
+    autograd through its plain version, on a random projection of every
+    output, at the train step's scale-2 shapes (B=30, 8x8x16, cond 64)."""
     from recurrent_flows_tpu_torch.flows.glow import prep_glowstep_params
     from recurrent_flows_tpu_torch.ops import (
         GlowStepParams, actnorm_invconv, actnorm_invconv_ref, convlstm_gates,
@@ -839,6 +891,51 @@ def check_gradients(model):
                                        (TOL_GRAD,) * len(inputs))
         print(f"gradient of {name}: {len(inputs)} inputs, max |err| {errs[name]:.3e}")
     return errs
+
+
+def check_opchecks(record) -> dict:
+    """``torch.library.opcheck`` of each of the five ``rft::`` operators with
+    CUDA tensors at one small shape (the coupling on 'split'/'cross' views):
+    the schema, the autograd registration, the fake implementation against
+    the kernel, and AOT dispatch with dynamic shapes. Returns seconds per
+    operator."""
+    from recurrent_flows_tpu_torch.ops import GlowStepParams
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    rnd = lambda *s, scale=1.0: (torch.randn(s, generator=g, device=dev) * scale).requires_grad_()
+    c, cc, u = 4, 2, 8
+    shapes = dict(an_bias=(c,), an_logs=(c,), w1x1=(c, c), wa=(9, c // 2 + cc, u),
+                  ana_bias=(u,), ana_logs=(u,), wb=(u, u), anb_bias=(u,), anb_logs=(u,),
+                  wc=(9, u, c), bias_c=(c,), clamp_scale=(c // 2,), clamp_shift=(c // 2,))
+    params = lambda lead: [rnd(*lead, *shapes[f], scale=0.1) for f in GlowStepParams._fields]
+    x, h = rnd(2, 4, 4, 8), rnd(2, 4, 4, 8, scale=0.5)
+    cases = {
+        "coupling_transform": (x[..., 4:], h[..., 0::2], torch.tanh(h[..., 1::2]), False),
+        "actnorm_invconv": (rnd(16, 8), rnd(8, scale=0.3), rnd(8, scale=0.3),
+                            torch.linalg.qr(torch.randn(8, 8, device=dev))[0].contiguous().requires_grad_()),
+        "convlstm_gates": (rnd(2, 2, 2, 16), rnd(2, 2, 2, 4),
+                           *(rnd(1, 2, 2, 4, scale=0.1) for _ in range(3))),
+        "glowstep": (rnd(2, 4, 4, c), rnd(2, 4, 4, cc), *params(()), "realnvp", False),
+        "glowchain": (rnd(2, 4, 4, c), rnd(2, 4, 4, cc), *params((2,)), "realnvp", True),
+    }
+    # the GlowStep operators' registered backward re-runs their plain version
+    # under autograd, device-agnostic, held by the CPU opchecks and by
+    # check_gradients on the card; here their inputs take no gradient, which
+    # keeps AOT dispatch from tracing that backward (20-30 s each)
+    for name in ("glowstep", "glowchain"):
+        cases[name] = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                            for a in cases[name])
+    seconds = {}
+    for name, args in cases.items():
+        t0 = time.perf_counter()
+        torch.library.opcheck(getattr(torch.ops.rft, name).default, args)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    record["opcheck_s"] = seconds
+    print("torch.library.opcheck on the card: " + ", ".join(
+        f"rft::{k} passed ({v:.1f} s)" for k, v in seconds.items()))
+    return seconds
 
 
 # rfn_bair: (H = W, C) of x at its four flow scales; the scale its with_skip
@@ -1461,16 +1558,38 @@ def diagnostics_launches(mcfg, chain_scales, frames: int, n_cond: int) -> dict:
         glowchain=steps * chains + steps * 2 * 2 * chains, glowstep=0)
 
 
-def counted(label, fn, want):
-    """Call ``fn`` and check the launches it made against ``want``."""
+def launched(fn):
+    """(fn(), the launches it made)."""
     from recurrent_flows_tpu_torch import ops
 
     before = ops.launch_counts()
     out = fn()
-    counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    return out, {k: v - before[k] for k, v in ops.launch_counts().items()}
+
+
+def counted(label, fn, want):
+    """Call ``fn`` and check the launches it made against ``want``."""
+    out, counts = launched(fn)
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
     return out
+
+
+def check_plots(label, workdir, printed: str, n_files: int) -> dict:
+    """``fit``'s plots in ``workdir/png_folder``: ``losses.png`` and
+    ``samples0.png`` decode with ``read_png`` (and ``n_files`` PNGs are
+    there), and ``fit`` printed no plot failure. Returns their shapes."""
+    from recurrent_flows_tpu_torch.data.png import read_png
+
+    png = Path(workdir) / "png_folder"
+    files = sorted(p.name for p in png.glob("*.png")) if png.is_dir() else []
+    if "plotter failed" in printed or len(files) != n_files:
+        raise AssertionError(f"{label}: plots {files}, expected {n_files}; printed "
+                             f"{[l for l in printed.splitlines() if 'plotter' in l]}")
+    shapes = {name: list(read_png(str(png / name)).shape)
+              for name in ("losses.png", "samples0.png")}
+    print(f"{label}: plots {files} written, {shapes}")
+    return shapes
 
 
 def check_frames(label, out, shape):
@@ -1578,13 +1697,29 @@ def lifecycle(rng, record, card):
     want = train_launches(mcfg, "A", True, tcfg.n_frames - 1, ())
     step = trainer.train_step
     trainer.train_step = lambda *a, **k: counted("fit step", lambda: step(*a, **k), want)
+    step_counts = []
+
+    def counted_step(*a, **k):
+        out, counts = launched(lambda: step(*a, **k))
+        if counts != want:
+            raise AssertionError(f"fit step: launches {counts}, expected {want}")
+        step_counts.append(counts)
+        return out
+
+    trainer.train_step = counted_step
+    printed = io.StringIO()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    trainer.fit(n_epochs=FIT_EPOCHS, plot=False)
+    with contextlib.redirect_stdout(printed):
+        trainer.fit(n_epochs=FIT_EPOCHS)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    paths["mnist_fit"] = ops.launch_counts()
+    # the steps' launches; the rest are the plots' (plot_rows each epoch)
+    paths["mnist_fit"] = add(*step_counts)
+    record["fit_plot_launches"] = {k: v - paths["mnist_fit"][k]
+                                   for k, v in ops.launch_counts().items()}
     del trainer.train_step
+    record["fit_plots"] = check_plots("fit", workdir, printed.getvalue(), 1 + FIT_EPOCHS)
     folder = workdir / "model_folder"
     n_steps = FIT_EPOCHS * FIT_STEPS
     status = (folder / "status.txt").read_text().splitlines()
@@ -2353,20 +2488,21 @@ CLI_PNG_VIDEOS, CLI_PNG_FRAMES = 4, 12
 
 class CliTimers:
     """While in the context: each ``Trainer.train_step`` is synchronised and
-    timed, with its peak memory and its launches; each PNG loader's batch
-    is timed on the host; ``Trainer.load`` keeps a copy of the state it
-    loaded."""
+    timed, with its peak memory and its launches; each batch of the PNG
+    loaders and of the frame cache's ring is timed on the host;
+    ``Trainer.load`` keeps a copy of the state it loaded."""
 
     def __enter__(self):
         from recurrent_flows_tpu_torch import ops
         from recurrent_flows_tpu_torch.data import KTH, PushDataset
+        from recurrent_flows_tpu_torch.data.framecache import FrameCache
         from recurrent_flows_tpu_torch.training import Trainer
 
         self.steps, self.batch_ms, self.loaded = [], [], None
         self._saved = [(Trainer, "train_step"), (Trainer, "load"), (KTH, "sample_numpy"),
-                       (PushDataset, "sample_numpy")]
+                       (PushDataset, "sample_numpy"), (FrameCache, "sample_numpy")]
         self._saved = [(owner, name, getattr(owner, name)) for owner, name in self._saved]
-        step, load, kth, push = (inner for _, _, inner in self._saved)
+        step, load, kth, push, ring = (inner for _, _, inner in self._saved)
 
         def timed_step(tr, *a, **k):
             before = ops.launch_counts()
@@ -2401,6 +2537,7 @@ class CliTimers:
 
         Trainer.train_step, Trainer.load = timed_step, kept_load
         KTH.sample_numpy, PushDataset.sample_numpy = host_timed(kth), host_timed(push)
+        FrameCache.sample_numpy = host_timed(ring)
         return self
 
     def __exit__(self, *exc):
@@ -2411,7 +2548,8 @@ class CliTimers:
 def run_cli(label, module, argv, want_step, record):
     """``module.main(argv)`` with the launch counts set to 0 before it and
     read after it, every step's launches held to ``want_step``, its printed
-    lines kept. Returns (the trainer, the run's launches)."""
+    lines kept, its plots checked (``check_plots``: no plot failure, the
+    PNGs decode). Returns (the trainer, the run's launches, the timers)."""
     import contextlib
     import io
 
@@ -2430,8 +2568,10 @@ def run_cli(label, module, argv, want_step, record):
         raise AssertionError(f"{label}: step launches {bad[:1]}, expected {want_step}; "
                              f"{len(timers.steps)} steps, losses {tr.losses}")
     lines = printed.getvalue().splitlines()
+    plots = check_plots(label, argv[argv.index("--path") + 1], printed.getvalue(),
+                        1 + tr.plot_counter)
     rec = dict(argv=argv, wall_s=wall, steps=timers.steps, launches_per_step=want_step,
-               launches=launches, printed=lines)
+               launches=launches, printed=lines, plots=plots, data=type(tr.data).__name__)
     if timers.batch_ms:
         rec["loader_batch_ms"] = timers.batch_ms
     record[label] = rec
@@ -2445,19 +2585,25 @@ def run_cli(label, module, argv, want_step, record):
 
 def write_png_tree(choice, root, rng, size: int):
     """A KTH (gray) or BAIR (RGB) tree of moving squares, size x size PNGs,
-    in the layout each loader reads."""
+    in the layout each loader reads: CLI_PNG_VIDEOS training videos and one
+    test video (KTH persons 1-4 and 21; BAIR trajectories under train/ and
+    test/), each frame's rows filtered with Average and Paeth in turn (PNG
+    filters 3 and 4, which real encoders write and which cost the decoder
+    the most)."""
     from recurrent_flows_tpu_torch.data.png import write_png
 
     ch = 1 if choice == "kth" else 3
-    videos = moving_squares(rng, CLI_PNG_VIDEOS, CLI_PNG_FRAMES, size, ch)
+    videos = moving_squares(rng, CLI_PNG_VIDEOS + 1, CLI_PNG_FRAMES, size, ch)
     for v, frames in enumerate(videos):
-        d = (root / "processed" / "boxing" / f"person{v + 1:02d}_boxing_d1" if choice == "kth"
-             else root / "train" / "traj_0_to_255" / str(v))
+        test = v == CLI_PNG_VIDEOS
+        d = (root / "processed" / "boxing" / f"person{21 if test else v + 1:02d}_boxing_d1"
+             if choice == "kth"
+             else root / ("test" if test else "train") / "traj_0_to_255" / str(v))
         d.mkdir(parents=True)
         for i, f in enumerate(frames):
             img = np.round(f * 255).astype(np.uint8)
             write_png(str(d / (f"image-{i:03d}.png" if choice == "kth" else f"{i}.png")),
-                      img[..., 0] if ch == 1 else img)
+                      img[..., 0] if ch == 1 else img, filters=(3, 4))
 
 
 def check_cli_kernels(model, record) -> dict:
@@ -2631,7 +2777,8 @@ def training_clis(rng, record) -> tuple:
     import shutil
 
     from recurrent_flows_tpu_torch import ops
-    from recurrent_flows_tpu_torch.cli import main_rfn, main_srnn, main_svg, main_vrnn
+    from recurrent_flows_tpu_torch.cli import (build_framecache, main_rfn, main_srnn, main_svg,
+                                               main_vrnn)
     from recurrent_flows_tpu_torch.models import RFN
     from recurrent_flows_tpu_torch.serving import Predictor
     from recurrent_flows_tpu_torch.training.checkpoint import load_model_from_checkpoint
@@ -2721,16 +2868,34 @@ def training_clis(rng, record) -> tuple:
     del pred, chained
     torch.cuda.empty_cache()
 
-    # the other data sources, one step each
+    # the other data sources, one step each: KTH and BAIR first through the
+    # PNG loaders, then through the frame cache's blobs, which
+    # cli.build_framecache writes from the same trees
     one = ["--n_epochs", "1", "--steps_per_epoch", "1"]
     _, paths["cli_shapes"], _ = run_cli("cli_shapes", main_rfn, one + [
         "--choose_data", "shapes", "--path", str(CLI_DIR / "shapes")], want, record)
     for choice in ("kth", "bair"):
         root = CLI_DIR / f"{choice}_data"
         write_png_tree(choice, root, rng, img)
-        _, paths[f"cli_{choice}"], _ = run_cli(f"cli_{choice}", main_rfn, one + [
-            "--choose_data", choice, "--data_root", str(root),
+        argv = one + ["--choose_data", choice, "--data_root", str(root)]
+        _, paths[f"cli_{choice}_png"], _ = run_cli(f"cli_{choice}_png", main_rfn, argv + [
+            "--path", str(CLI_DIR / f"{choice}_png")], want, record)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            blobs = build_framecache.main(["--dataset", choice, "--data_root", str(root)])
+        build_s = time.perf_counter() - t0
+        _, paths[f"cli_{choice}"], _ = run_cli(f"cli_{choice}", main_rfn, argv + [
             "--path", str(CLI_DIR / choice)], want, record)
+        kinds = (record[f"cli_{choice}_png"]["data"], record[f"cli_{choice}"]["data"])
+        if kinds != ({"kth": "KTH", "bair": "PushDataset"}[choice], "FrameCache"):
+            raise AssertionError(f"cli_{choice}: the steps read {kinds}, expected the PNG "
+                                 "loader, then the frame cache")
+        record[f"cli_{choice}"]["blobs"] = dict(build_s=build_s, bytes={
+            Path(b).name: Path(b).stat().st_size for b in blobs})
+        print(f"{choice}: blobs {record[f'cli_{choice}']['blobs']['bytes']} built in "
+              f"{build_s:.2f} s from filter-3/4 PNGs; loader ms per batch: PNG "
+              f"{statistics.median(record[f'cli_{choice}_png']['loader_batch_ms']):.2f}, "
+              f"ring {statistics.median(record[f'cli_{choice}']['loader_batch_ms']):.2f}")
     torch.cuda.empty_cache()
 
     # the other families at their defaults
@@ -2776,6 +2941,129 @@ def training_clis(rng, record) -> tuple:
     if never:
         raise AssertionError(f"phase 14 paths that never launched their kernels: {never}")
     return paths, checks
+
+
+# phase 15: the serving export. Phase 11's rfn_mnist_production checkpoint
+# (chain_impl='sample') through the export CLI, phase 12's srnn_mnist one
+# through Predictor.export, each at B=8 with 5 context + 10 predicted frames
+EXPORT_DIR = ROOT / "runs" / "chip_smoke_export"
+EXPORT_SEEDS = (7, 8, 9)
+
+
+def export_phase(record) -> dict:
+    """Phase 15: export, load and serve (see the module docstring). Each
+    artifact answers one request per seed of EXPORT_SEEDS with exact
+    launches (timed), then each again beside ``Predictor(seed=seed).predict``
+    on the same checkpoint and context, whose launches must be the same and
+    whose frames must be the same bit for bit (deterministic cuDNN for this
+    comparison). Returns {path: launches of the timed exported requests}."""
+    import shutil
+
+    from recurrent_flows_tpu_torch import ops
+    from recurrent_flows_tpu_torch.cli import export_serving
+    from recurrent_flows_tpu_torch.data import MovingMNIST
+    from recurrent_flows_tpu_torch.serving import Predictor, load_exported
+    from recurrent_flows_tpu_torch.training.checkpoint import load_model_from_checkpoint
+
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    EXPORT_DIR.mkdir(parents=True)
+    data = MovingMNIST(digit_bank="synthetic", digit_size=32, num_digits=2, seq_len=N_COND)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rfn_ckpt = ROOT / "runs" / "chip_smoke_lifecycle" / "model_folder" / "last"
+    srnn_ckpt = ROOT / "runs" / "chip_smoke_srnn_mnist" / "model_folder" / "last"
+    paths = {}
+    for label, ckpt in (("export_rfn", rfn_ckpt), ("export_srnn", srnn_ckpt)):
+        out_path = EXPORT_DIR / f"{label}.pt2"
+        model, tcfg, _ = load_model_from_checkpoint(str(ckpt), device="cuda")
+        mcfg = model.cfg
+        if label == "export_rfn":
+            if mcfg.glow.chain_impl != "sample":
+                raise AssertionError(f"{label}: the checkpoint has chain_impl "
+                                     f"{mcfg.glow.chain_impl!r}, not 'sample'")
+            want = request_launches(mcfg, range(1, mcfg.L), N_COND)
+        else:
+            want = family_launches("srnn_mnist", "predict", N_PRED)
+        t0 = time.perf_counter()
+        if label == "export_rfn":
+            with contextlib.redirect_stdout(io.StringIO()):
+                blob = export_serving.main([
+                    "--checkpoint", str(ckpt), "--out", str(out_path), "--batch_size",
+                    str(BATCH), "--n_conditions", str(N_COND), "--n_predictions", str(N_PRED)])
+        else:
+            blob = Predictor(model, tcfg, n_conditions=N_COND, n_predictions=N_PRED).export(
+                str(out_path), batch_size=BATCH)
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve = load_exported(str(out_path))
+        load_s = time.perf_counter() - t0
+        if blob != out_path.read_bytes():
+            raise AssertionError(f"{label}: the returned bytes are not the file's")
+        nodes = [n for n in serve.program.graph.nodes if n.op == "call_function"]
+        rft_nodes = sorted({str(n.target) for n in nodes if str(n.target).startswith("rft.")})
+        ctxs = [data.sample(gen, BATCH).cpu().numpy() for _ in EXPORT_SEEDS]
+        serve(ctxs[0], 0)  # warm-up: the first call of a loaded program
+        torch.cuda.synchronize()
+        got, times = [], []
+        ops.reset_launch_counts()
+        for i, (seed, ctx) in enumerate(zip(EXPORT_SEEDS, ctxs)):
+            t0 = time.perf_counter()
+            frames, counts = launched(lambda: serve(ctx, seed))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if counts != want:
+                raise AssertionError(f"{label} request {i}: launches {counts}, expected {want}")
+            got.append(frames)
+        paths[label] = ops.launch_counts()
+        got = [f.cpu().numpy() for f in got]
+        for i, frames in enumerate(got):
+            check_frames(f"{label} request {i}", frames, (BATCH, N_PRED) + ctxs[i].shape[2:])
+        # the eager requests beside them, timed the same way
+        eager_ms = []
+        for i, (seed, ctx) in enumerate(zip(EXPORT_SEEDS, ctxs)):
+            pred = Predictor(model, tcfg, n_conditions=N_COND, n_predictions=N_PRED, seed=seed)
+            t0 = time.perf_counter()
+            counted(f"{label} eager request {i}", lambda: pred.predict(ctx), want)
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+        # each request again beside the eager one, Predictor(seed=seed).predict
+        # (its first request), with deterministic cuDNN algorithms: by default
+        # a transposed conv (SRNN's decoder) may sum with atomics, and two eager
+        # requests differ in the last bits
+        cudnn = torch.backends.cudnn
+        saved_cudnn, cudnn.deterministic = cudnn.deterministic, True
+        errs, equal = [], []
+        try:
+            for i, (seed, ctx) in enumerate(zip(EXPORT_SEEDS, ctxs)):
+                served = serve(ctx, seed).cpu().numpy()
+                pred = Predictor(model, tcfg, n_conditions=N_COND, n_predictions=N_PRED,
+                                 seed=seed)
+                ref, counts = launched(lambda: pred.predict(ctx))
+                if counts != want:
+                    raise AssertionError(f"{label}: the eager request {i} launched {counts}, "
+                                         f"expected {want}")
+                equal.append(bool(np.array_equal(served, ref)))
+                errs.append(float(np.abs(served - ref).max()))
+        finally:
+            cudnn.deterministic = saved_cudnn
+        rec = dict(export_s=export_s, load_s=load_s, artifact_bytes=len(blob), ms=times,
+                   median_ms=statistics.median(times), eager_ms=eager_ms,
+                   eager_median_ms=statistics.median(eager_ms), launches_per_request=want,
+                   rft_nodes=rft_nodes, graph_nodes=len(nodes), bit_equal=equal,
+                   max_abs_err=errs, draws=len(serve.meta["draws"]))
+        record[label] = rec
+        print(f"{label}: exported in {export_s:.1f} s ({len(blob)} bytes, {len(nodes)} graph "
+              f"nodes, {rft_nodes}), loaded in {load_s:.1f} s; {len(EXPORT_SEEDS)} requests of "
+              f"{BATCH}: median {rec['median_ms']:.1f} ms ({[round(t, 1) for t in times]}; "
+              f"eager {rec['eager_median_ms']:.1f}, {[round(t, 1) for t in eager_ms]}), "
+              f"launches {want} as the eager request's; bit-equal to "
+              f"Predictor(seed).predict: {equal} (max |err| {max(errs):.3e})")
+        if not all(equal):
+            raise AssertionError(f"{label}: the exported requests differ from the eager "
+                                 f"ones: max |err| {errs}")
+        del model, serve, pred
+        torch.cuda.empty_cache()
+    return paths
 
 
 SOURCES = {
@@ -2830,6 +3118,7 @@ def main() -> None:
     with float32_precision():
         kernels = check_kernels(model, record)
         record["gradient_err"] = check_gradients(model)
+        check_opchecks(record)
     print(f"phase 3 done at {time.perf_counter() - t_start:.0f} s")
 
     rng = np.random.default_rng(0)
@@ -2875,6 +3164,12 @@ def main() -> None:
     record["training_clis"]["phase_s"] = time.perf_counter() - t0
     print(f"training CLIs done at {time.perf_counter() - t_start:.0f} s "
           f"(phase 14: {record['training_clis']['phase_s']:.0f} s)")
+    record["export"] = {}
+    t0 = time.perf_counter()
+    paths.update(export_phase(record["export"]))
+    record["export"]["phase_s"] = time.perf_counter() - t0
+    print(f"export done at {time.perf_counter() - t_start:.0f} s "
+          f"(phase 15: {record['export']['phase_s']:.0f} s)")
 
     launches = {name: sum(p[name] for p in paths.values()) for name in SOURCES}
     never = [name for name in SOURCES if launches[name] == 0]
@@ -2886,11 +3181,15 @@ def main() -> None:
     on_eval = [name for name in ("actnorm_invconv", "convlstm_gates", "coupling_transform",
                                  "glowchain") if paths["eval_rfn"][name] == 0]
     on_eval += ["convlstm_gates (srnn)"] * (paths["eval_srnn"]["convlstm_gates"] == 0)
-    if never or on_bair or on_families or on_eval:
+    on_export = [f"{path} {name}" for path, names in (
+        ("export_rfn", ("convlstm_gates", "coupling_transform", "glowchain")),
+        ("export_srnn", ("convlstm_gates",))) for name in names if paths[path][name] == 0]
+    if never or on_bair or on_families or on_eval or on_export:
         raise AssertionError(f"kernels the main paths never launched: {never}; "
                              f"that rfn_bair never launched: {on_bair}; family paths "
                              f"without the gates: {on_families}; that evaluation never "
-                             f"launched: {on_eval}")
+                             f"launched: {on_eval}; that the export never launched: "
+                             f"{on_export}")
     max_err = {name: max(kernels[name]["max_abs_err"], new[name]["max_abs_err"])
                for name in SOURCES}
     max_err["convlstm_gates"] = max(max_err["convlstm_gates"], fam_gates["max_abs_err"])

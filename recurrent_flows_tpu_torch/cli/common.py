@@ -154,8 +154,8 @@ def build_dataset(args, train: bool = True, device="cuda"):
     made on ``device`` (``.sample(generator, batch_size)``); KTH or BAIR
     through the native frame cache where
     ``<data_root>/<kth|bair>_<train|test>.blob`` exists
-    (``scripts/build_framecache.py``), else the PNG loaders, host batches of
-    ``args.batch_size``."""
+    (``python -m recurrent_flows_tpu_torch.cli.build_framecache``), else the
+    PNG loaders, host batches of ``args.batch_size``."""
     from ..data import KTH, MovingMNIST, MovingShapes, PushDataset
 
     if args.choose_data == "mnist":

@@ -5,8 +5,10 @@ and the same batches for a seed.
 ``native/framecache.cpp`` is compiled with ``g++ -O3`` on first use into
 ``recurrent_flows_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
 hash of the source and the flags. A frame-dir dataset is converted into
-the mmap blob once (``build_blob``, ``blob_from_loader``); ``FrameCache``
-then serves batches from the C++ prefetch ring, with no Python in the
+the mmap blob once (``build_blob``, ``blob_from_loader``, decoding with
+``data.png.read_png``; the command line is ``python -m
+recurrent_flows_tpu_torch.cli.build_framecache``); ``FrameCache`` then
+serves batches from the C++ prefetch ring, with no Python in the
 steady-state data path. ``is_available()`` is False where there is no
 toolchain.
 """
@@ -14,48 +16,31 @@ toolchain.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import struct
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Iterable, Optional
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parents[1]
-_SRC = _PKG / "native" / "framecache.cpp"
-BUILD_DIR = _PKG / "_build"
+from . import _native
+from .png import read_png
+
+_SRC = _native.NATIVE / "framecache.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _MAGIC = 0x46434231
-
-
-def _lib_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes())
-    digest.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libframecache_{digest.hexdigest()[:16]}.so"
 
 
 def ensure_built(force: bool = False) -> Optional[str]:
     """Compile the shared library if needed; returns its path, or None
     where it cannot be built (no g++)."""
-    lib = _lib_path()
-    if lib.is_file() and not force:
-        return str(lib)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    lib = _native.lib_path(_SRC, GXX_FLAGS, BUILD_DIR)
+    if force and lib.is_file():
+        lib.unlink()
     try:
-        subprocess.run(["g++", *GXX_FLAGS, str(_SRC), "-o", tmp],
-                       check=True, capture_output=True)
-        os.replace(tmp, lib)
-    except (OSError, subprocess.CalledProcessError):
+        return str(_native.build(_SRC, GXX_FLAGS, BUILD_DIR))
+    except RuntimeError:
         return None
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return str(lib)
 
 
 def is_available() -> bool:
@@ -87,21 +72,21 @@ def build_blob(videos: Iterable[np.ndarray], out_path: str) -> str:
 def blob_from_loader(loader, out_path: str, max_videos: Optional[int] = None,
                      channels: Optional[int] = None) -> str:
     """Convert a loader's videos (``.videos`` or ``.trajs``: lists of frame
-    image paths) into a blob, decoding each frame once. ``channels``
-    defaults to 1 for ``.videos`` (KTH, channel 0) and 3 for ``.trajs``
-    (BAIR). Needs matplotlib."""
+    image paths) into a blob, decoding each frame once with
+    ``data.png.read_png`` (what ``matplotlib.image.imread`` gives, which the
+    JAX package decodes with). ``channels`` defaults to 1 for ``.videos``
+    (KTH, channel 0) and 3 for ``.trajs`` (BAIR): a gray frame is repeated
+    to 3 channels, an alpha channel dropped."""
     sources = getattr(loader, "videos", None) or getattr(loader, "trajs", None)
     if not sources:
         raise ValueError("loader exposes no frame lists")
     if channels is None:
         channels = 1 if hasattr(loader, "videos") else 3
-    from matplotlib import image as mpimg
-
     videos = []
     for frames in sources[: max_videos or len(sources)]:
         imgs = []
         for p in frames:
-            img = mpimg.imread(p)
+            img = read_png(p)
             if img.ndim == 2:
                 img = img[..., None]
             if channels == 1:

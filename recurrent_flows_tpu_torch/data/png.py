@@ -7,6 +7,9 @@ not interlaced, in gray, gray+alpha, RGB or RGBA, with any of the five
 row filters, and returns what ``imread`` returns for them: float32
 ``uint8 / 255``, [H, W] for gray and [H, W, C] otherwise (gray+alpha as
 RGBA, as ``imread`` converts it). Any other PNG raises ``ValueError``.
+The row filters are undone in C++ (``native/png_unfilter.cpp``, built with
+g++ on the first read into ``recurrent_flows_tpu_torch/_build/``); where
+it cannot be built, ``read_png`` raises ``RuntimeError``.
 
 ``write_png`` writes 8-bit gray, RGB or RGBA, each row with the filter
 types given in turn (a test covers every filter; the default, 0, filters
@@ -15,52 +18,39 @@ nothing).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import struct
 import zlib
+from pathlib import Path
 
 import numpy as np
+
+from . import _native
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> bytes per pixel (8-bit samples)
 _CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}
+_SRC = _native.NATIVE / "png_unfilter.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
+@functools.cache
+def _unfilter_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_native.build(_SRC, GXX_FLAGS, BUILD_DIR)))
+    lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int64] * 3
+    lib.png_unfilter.restype = ctypes.c_int64
+    return lib
 
 
 def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     """Undo each row's filter (PNG spec, section 9.2): [height, stride] uint8."""
-    rows = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
-    out = np.zeros((height, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(height):
-        kind, line = rows[y, 0], rows[y, 1:]
-        if kind == 0:
-            cur = line.copy()
-        elif kind == 1:  # Sub: a running sum per channel, modulo 256
-            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif kind == 2:  # Up
-            cur = line + prior
-        elif kind in (3, 4):  # Average, Paeth: each byte needs the one before
-            cur = bytearray(line.tobytes())
-            up = prior.tolist()
-            for i in range(stride):
-                left = cur[i - bpp] if i >= bpp else 0
-                if kind == 3:
-                    pred = (left + up[i]) >> 1
-                else:
-                    pred = _paeth(left, up[i], up[i - bpp] if i >= bpp else 0)
-                cur[i] = (cur[i] + pred) & 0xFF
-            cur = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ValueError(f"PNG row filter {kind} is not one of 0-4")
-        out[y] = cur
-        prior = out[y]
+    rows = np.frombuffer(raw, np.uint8)
+    out = np.empty((height, stride), np.uint8)
+    bad = _unfilter_lib().png_unfilter(rows.ctypes.data, out.ctypes.data, height, stride, bpp)
+    if bad:
+        raise ValueError(f"PNG row filter {rows[(bad - 1) * (stride + 1)]} is not one of 0-4")
     return out
 
 

@@ -19,6 +19,7 @@ from .fused import (
 from .glowchain import glowchain, glowchain_ref
 from .glowstep import (GlowStepParams, LaunchPlan, glowstep, glowstep_ref,
                        launch_plan, plan_chunks, plan_exists, plan_samples)
+from . import library  # noqa: F401  (defines the rft:: operators the wrappers call)
 from .mol import (DiscretizedMixtureLogits, DiscretizedMixtureLogits1d, mol_log_prob_1d,
                   mol_log_prob_rgb, mol_sample_1d, mol_sample_rgb)
 

@@ -22,15 +22,15 @@ Replaces ``recurrent_flows_tpu/ops/pallas/fused.py``:
   :func:`gates_plan` decides its geometry.
 
 The source notes in ``csrc/`` say what bounds each CUDA kernel on the H100
-and what its design does about it. Dispatch is by device: a CPU tensor
-takes the plain version (autograd differentiates it directly), a CUDA
-tensor launches the kernel or raises; nothing falls back and nothing is
-copied behind the caller's back. Each wrapper counts its launches in
-``<wrapper>.launches``. Every kernel is built on its first launch only. On
-the card each kernel is the forward of a ``torch.autograd.Function`` whose
-backward is plain PyTorch, as the TPU kernels' VJPs are plain jnp: the
-closed forms for the coupling and the folded 1x1, the plain version re-run
-under autograd for the gates.
+and what its design does about it. Each wrapper validates its inputs and
+calls its ``torch.library`` operator (``ops.library``: ``rft::<wrapper>``)
+on every device: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises; nothing falls back and nothing is copied
+behind the caller's back. The operator's CUDA implementation counts its
+launches in ``<wrapper>.launches``. Every kernel is built on its first
+launch only. Backwards are plain PyTorch, registered with the operators,
+as the TPU kernels' VJPs are plain jnp: the closed forms for the coupling
+and the folded 1x1, the plain version re-run under autograd for the gates.
 """
 
 from __future__ import annotations
@@ -89,7 +89,6 @@ def _check(name, tensors, shapes, contiguous=True):
             raise ValueError(f"{name}: tensors must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
-    return dev.type == "cuda"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -210,36 +209,15 @@ def _coupling_launch(z2, shift, s, reverse, strides):
     return out, ld
 
 
-class _Coupling(torch.autograd.Function):
-    """Kernel forward; the closed-form backward of the TPU kernel's VJP."""
-
-    @staticmethod
-    def forward(ctx, z2, shift, s, reverse, strides):
-        ctx.save_for_backward(z2, shift, s)
-        ctx.reverse = reverse
-        return _coupling_launch(z2, shift, s, reverse, strides)
-
-    @staticmethod
-    def backward(ctx, g_out, g_ld):
-        z2, shift, s = ctx.saved_tensors
-        gl = g_ld.reshape((-1,) + (1,) * (s.dim() - 1))
-        if not ctx.reverse:
-            dz2 = g_out * torch.exp(s)
-            return dz2, dz2, dz2 * (z2 + shift) + gl, None, None
-        dz2 = g_out * torch.exp(-s)
-        return dz2, -g_out, -dz2 * z2 + gl, None, None
-
-
 def coupling_transform(z2, shift, s, reverse: bool = False):
     """(z2', logdet[B]) for the affine coupling tail, NHWC f32. The inputs
     may be views with channel stride 1 or 2 (:func:`nhwc_view`); z2' is
     contiguous."""
-    on_card = _check("coupling_transform", (z2, shift, s), (z2.shape,) * 3,
-                     contiguous=False)
-    strides = [nhwc_view(name, t) for name, t in (("z2", z2), ("shift", shift), ("s", s))]
-    if not on_card:
-        return coupling_transform_ref(z2, shift, s, reverse)
-    return _Coupling.apply(z2, shift, s, bool(reverse), strides)
+    _check("coupling_transform", (z2, shift, s), (z2.shape,) * 3, contiguous=False)
+    # the layout (nhwc_view) is checked where the operator runs, on either
+    # device: a trace's fake tensors may carry other strides than the real
+    # ones (a cuDNN conv's output, for one)
+    return torch.ops.rft.coupling_transform.default(z2, shift, s, bool(reverse))
 
 
 coupling_transform.launches = 0
@@ -298,28 +276,6 @@ def _gates_launch(gates, c, w_ci, w_cf, w_co):
     return h_next, c_next
 
 
-class _Gates(torch.autograd.Function):
-    """Kernel forward; backward through the plain version, re-run under
-    autograd on the saved inputs."""
-
-    @staticmethod
-    def forward(ctx, *inputs):
-        ctx.save_for_backward(*inputs)
-        return _gates_launch(*inputs)
-
-    @staticmethod
-    def backward(ctx, g_h, g_c):
-        needs = ctx.needs_input_grad
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, needs)]
-            out = convlstm_gates_ref(*ins)
-            wanted = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad(out, wanted, (g_h, g_c),
-                                           allow_unused=True))
-        return tuple(next(got) if n else None for n in needs)
-
-
 def convlstm_gates(gates, c, w_ci, w_cf, w_co):
     """Peephole gate nonlinearity + state update -> (h_next, c_next)."""
     b, h, w, hc4 = gates.shape
@@ -327,10 +283,9 @@ def convlstm_gates(gates, c, w_ci, w_cf, w_co):
         raise ValueError("convlstm_gates: gate channels must be 4·hc")
     hc = hc4 // 4
     peep = (1, h, w, hc)
-    if not _check("convlstm_gates", (gates, c, w_ci, w_cf, w_co),
-                  (gates.shape, (b, h, w, hc), peep, peep, peep)):
-        return convlstm_gates_ref(gates, c, w_ci, w_cf, w_co)
-    return _Gates.apply(gates, c, w_ci, w_cf, w_co)
+    _check("convlstm_gates", (gates, c, w_ci, w_cf, w_co),
+           (gates.shape, (b, h, w, hc), peep, peep, peep))
+    return torch.ops.rft.convlstm_gates.default(gates, c, w_ci, w_cf, w_co)
 
 
 convlstm_gates.launches = 0
@@ -415,36 +370,13 @@ def _ainv_launch(x, bias, logs, w):
     return y
 
 
-class _ActnormInvconv(torch.autograd.Function):
-    """Kernel forward; the closed-form backward of the TPU kernel's VJP."""
-
-    @staticmethod
-    def forward(ctx, x, bias, logs, w):
-        ctx.save_for_backward(x, bias, logs, w)
-        return _ainv_launch(x, bias, logs, w)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, bias, logs, w = ctx.saved_tensors
-        c = x.shape[-1]
-        scale = torch.exp(logs)
-        y = ((x + bias) * scale).reshape(-1, c)  # pre-matmul activations
-        g = g.reshape(-1, c)
-        gs = (g @ w) * scale
-        return (gs.reshape(x.shape), gs.sum(0), (gs * (x + bias).reshape(-1, c)).sum(0),
-                g.T @ y)
-
-
 def actnorm_invconv(x, bias, logs, w):
     """y = ((x + bias)·e^logs) @ wᵀ over the last axis of x [..., C], f32:
     the step actnorm folded into the 1x1 (no logdet; the caller has it
     from ``logs`` and ``w`` alone)."""
     c = x.shape[-1]
-    on_card = _check("actnorm_invconv", (x, bias, logs, w),
-                     (x.shape, (c,), (c,), (c, c)))
-    if not on_card:
-        return actnorm_invconv_ref(x, bias, logs, w)
-    return _ActnormInvconv.apply(x, bias, logs, w)
+    _check("actnorm_invconv", (x, bias, logs, w), (x.shape, (c,), (c,), (c, c)))
+    return torch.ops.rft.actnorm_invconv.default(x, bias, logs, w)
 
 
 actnorm_invconv.launches = 0

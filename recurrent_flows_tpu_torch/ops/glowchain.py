@@ -9,19 +9,20 @@ geometry.
 
 Parameters arrive as a :class:`GlowStepParams` whose every leaf is stacked
 ``[K, ...]`` in execution order (reversed for the inverse), as
-``flows.glow.ListGlow.chain_params`` builds them. The wrapper dispatches by
+``flows.glow.ListGlow.chain_params`` builds them. The wrapper validates
+them and calls the operator ``rft::glowchain`` (``ops.library``) on every
 device: a CPU tensor takes :func:`glowchain_ref`, a CUDA tensor launches
-the kernel or raises. It counts its launches in ``glowchain.launches``.
-The gradient on the card re-runs the plain chain on the saved inputs
-(``ops.glowstep.ReplayGrad``), as the TPU kernel's VJP does.
+the kernel or raises. The operator's CUDA implementation counts the
+launches in ``glowchain.launches``. The registered gradient re-runs the
+plain chain on the saved inputs under autograd, as the TPU kernel's VJP
+does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .glowstep import (CLAMP_TYPES, GlowStepParams, ReplayGrad, check_inputs,
-                       glowstep_ref, launch_kernel)
+from .glowstep import CLAMP_TYPES, GlowStepParams, check_inputs, glowstep_ref, launch_kernel
 
 
 def glowchain_ref(x, cond, ps: GlowStepParams, clamp_type: str,
@@ -47,10 +48,8 @@ def glowchain(x, cond, ps: GlowStepParams, clamp_type: str, reverse: bool):
     """Whole-scale K-step chain: (y, dyn_logdet[B]), NHWC f32."""
     if clamp_type not in CLAMP_TYPES:
         raise ValueError(f"unknown clamp type: {clamp_type}")
-    if not check_inputs("glowchain", x, cond, ps, stacked=True):
-        return glowchain_ref(x, cond, ps, clamp_type, reverse)
-    return ReplayGrad.apply(_launch, glowchain_ref, clamp_type, reverse,
-                            x, cond, *ps)
+    check_inputs("glowchain", x, cond, ps, stacked=True)
+    return torch.ops.rft.glowchain.default(x, cond, *ps, clamp_type, bool(reverse))
 
 
 glowchain.launches = 0

@@ -10,12 +10,13 @@ chain kernel (batch tile, cluster size, register tiles, the weight ring,
 the layout of shared memory); the C entry points take its integers.
 
 Parameters arrive as one step's :class:`GlowStepParams`, as
-``flows.glow.prep_glowstep_params`` builds them. The wrapper dispatches by
-device: a CPU tensor takes :func:`glowstep_ref` (autograd differentiates
-it directly), a CUDA tensor launches the kernel or raises. It counts its
-launches in ``glowstep.launches``. Like the TPU kernel's VJP, the gradient
-on the card re-runs the plain version on the saved inputs
-(:class:`ReplayGrad`); there is no backward kernel yet.
+``flows.glow.prep_glowstep_params`` builds them. The wrapper validates
+them and calls the operator ``rft::glowstep`` (``ops.library``) on every
+device: a CPU tensor takes :func:`glowstep_ref`, a CUDA tensor launches
+the kernel or raises. The operator's CUDA implementation counts the
+launches in ``glowstep.launches``. Like the TPU kernel's VJP, the
+registered gradient re-runs the plain version on the saved inputs under
+autograd; there is no backward kernel yet.
 """
 
 from __future__ import annotations
@@ -355,35 +356,9 @@ def glowstep_ref(x, cond, p: GlowStepParams, clamp_type: str, reverse: bool):
     return y * torch.exp(-p.an_logs) - p.an_bias, s.reshape(bt, -1).sum(-1)
 
 
-class ReplayGrad(torch.autograd.Function):
-    """``launch(x, cond, params, clamp_type, reverse)`` forward; backward
-    through ``ref`` of the same signature, re-run under autograd on the
-    saved inputs (what the TPU kernels' ``jax.vjp`` of their jnp reference
-    does)."""
-
-    @staticmethod
-    def forward(ctx, launch, ref, clamp_type, reverse, x, cond, *leaves):
-        ctx.save_for_backward(x, cond, *leaves)
-        ctx.ref, ctx.clamp_type, ctx.reverse = ref, clamp_type, reverse
-        return launch(x, cond, GlowStepParams(*leaves), clamp_type, reverse)
-
-    @staticmethod
-    def backward(ctx, g_y, g_ld):
-        needs = ctx.needs_input_grad[4:]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, needs)]
-            out = ctx.ref(ins[0], ins[1], GlowStepParams(*ins[2:]),
-                          ctx.clamp_type, ctx.reverse)
-            wanted = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad(out, wanted, (g_y, g_ld),
-                                           allow_unused=True))
-        return (None,) * 4 + tuple(next(got) if n else None for n in needs)
-
-
 def check_inputs(name: str, x, cond, ps: GlowStepParams, stacked: bool):
     """Validate shapes, types, devices and contiguity of a step's (or, with
-    ``stacked``, a [K, ...] chain's) inputs; True when they lie on a card."""
+    ``stacked``, a [K, ...] chain's) inputs."""
     if x.dim() != 4 or cond.dim() != 4 or x.shape[:3] != cond.shape[:3]:
         raise ValueError(f"{name}: x {tuple(x.shape)} and cond "
                          f"{tuple(cond.shape)} must be NHWC of one B,H,W")
@@ -409,7 +384,6 @@ def check_inputs(name: str, x, cond, ps: GlowStepParams, stacked: bool):
             raise ValueError(f"{name}: tensors must be contiguous")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
-    return x.device.type == "cuda"
 
 
 def load_library(name: str, n_int_args: int):
@@ -477,10 +451,8 @@ def glowstep(x, cond, p: GlowStepParams, clamp_type: str, reverse: bool):
     """One whole GlowStep: (y, coupling logdet [B]), NHWC f32."""
     if clamp_type not in CLAMP_TYPES:
         raise ValueError(f"unknown clamp type: {clamp_type}")
-    if not check_inputs("glowstep", x, cond, p, stacked=False):
-        return glowstep_ref(x, cond, p, clamp_type, reverse)
-    return ReplayGrad.apply(_launch, glowstep_ref, clamp_type, reverse,
-                            x, cond, *p)
+    check_inputs("glowstep", x, cond, p, stacked=False)
+    return torch.ops.rft.glowstep.default(x, cond, *p, clamp_type, bool(reverse))
 
 
 glowstep.launches = 0

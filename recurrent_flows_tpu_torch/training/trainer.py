@@ -447,37 +447,16 @@ class Trainer:
         return rows
 
     def plotter(self):
-        """``png_folder/losses.png`` (the four histories) and
-        ``samples<n>.png`` (the rows of ``plot_rows``, first sequence, up
-        to 10 frames); needs matplotlib."""
+        """``png_folder/losses.png`` (the four histories: bits per dim, loss,
+        KL, NLL, as polylines) and ``samples<n>.png`` (the rows of
+        ``plot_rows``, first sequence, up to 10 frames), drawn in numpy
+        (``training.plots``) and written by ``data.png.write_png``."""
+        from ..data.png import write_png
+        from .plots import frame_grid, loss_panel
+
         rows = self.plot_rows()
-        import matplotlib
-
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
         png = self._folder("png_folder")
-        fig, ax = plt.subplots(1, 4, figsize=(20, 5))
-        for a, (hist, title) in zip(ax, [(self.bits_hist, "bits per dim"),
-                                         (self.losses, "loss"), (self.kl_hist, "KL"),
-                                         (self.recon_hist, "NLL")]):
-            a.plot(hist)
-            a.set_title(title)
-            a.grid()
-        fig.tight_layout()
-        fig.savefig(os.path.join(png, "losses.png"), bbox_inches="tight")
-        plt.close(fig)
-        t_show = min(rows[0][1].shape[0], 10)
-        fig, ax = plt.subplots(len(rows), t_show, figsize=(1.5 * t_show, 1.5 * len(rows)))
-        for r, (name, arr) in enumerate(rows):
-            for t in range(t_show):
-                a = ax[r, t]
-                a.imshow(arr[min(t, arr.shape[0] - 1), 0].squeeze(), cmap="gray")
-                a.axis("off")
-                if t == 0:
-                    a.set_title(name, fontsize=8)
-        fig.tight_layout()
-        fig.savefig(os.path.join(png, f"samples{self.plot_counter}.png"),
-                    bbox_inches="tight")
-        plt.close(fig)
+        write_png(os.path.join(png, "losses.png"), loss_panel(
+            [self.bits_hist, self.losses, self.kl_hist, self.recon_hist]))
+        write_png(os.path.join(png, f"samples{self.plot_counter}.png"), frame_grid(rows))
         self.plot_counter += 1

@@ -1,6 +1,8 @@
 from .numerics import (
     NoiseSource,
+    RecordingNoise,
     batch_reduce,
+    draw_list,
     float32_precision,
     free_bits_kl,
     normal_kl,
@@ -12,5 +14,5 @@ from .numerics import (
     unsqueeze2d,
 )
 
-__all__ = ["NoiseSource", "batch_reduce", "float32_precision",
+__all__ = ["NoiseSource", "RecordingNoise", "batch_reduce", "draw_list", "float32_precision",
            "free_bits_kl", "normal_kl", "normal_log_prob", "normal_sample", "pad_same", "split_feature", "squeeze2d", "unsqueeze2d"]

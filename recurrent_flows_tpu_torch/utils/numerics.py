@@ -154,3 +154,53 @@ class NoiseSource:
         if self._replay is None:
             return True
         return next(self._replay, None) is None
+
+
+class RecordingNoise(NoiseSource):
+    """A generator's draws, as :class:`NoiseSource` takes them, each also
+    logged in ``draws`` by kind, shape and dtype (``uniform`` with its
+    ``low`` and ``high``, ``randint`` with its range), with the drawn
+    tensors in ``tensors``. :func:`draw_list` takes the same list again
+    from a generator."""
+
+    def __init__(self, generator: torch.Generator):
+        super().__init__(generator=generator)
+        self.draws, self.tensors = [], []
+
+    def _log(self, out: torch.Tensor, kind: str, **rng) -> torch.Tensor:
+        self.draws.append(dict(kind=kind, shape=list(out.shape),
+                               dtype=str(out.dtype).removeprefix("torch."), **rng))
+        self.tensors.append(out)
+        return out
+
+    def normal(self, like: torch.Tensor) -> torch.Tensor:
+        return self._log(super().normal(like), "normal")
+
+    def uniform(self, like: torch.Tensor, low: float, high: float) -> torch.Tensor:
+        return self._log(super().uniform(like, low, high), "uniform",
+                         low=float(low), high=float(high))
+
+    def randint(self, low: int, high: int, shape, device) -> torch.Tensor:
+        return self._log(super().randint(low, high, shape, device), "randint",
+                         low=int(low), high=int(high))
+
+
+def draw_list(draws, generator: torch.Generator) -> list:
+    """The draws a :class:`RecordingNoise` logged (``draws``), taken anew in
+    order from ``generator`` through :class:`NoiseSource`'s own methods, on
+    its device: the values a ``NoiseSource(generator=generator)`` gives a
+    caller that asks for the same draws."""
+    src, device, out = NoiseSource(generator=generator), generator.device, []
+    for d in draws:
+        shape, dtype = tuple(d["shape"]), getattr(torch, d["dtype"])
+        if d["kind"] == "randint":
+            out.append(src.randint(d["low"], d["high"], shape, device))
+            continue
+        like = torch.empty(shape, dtype=dtype, device=device)
+        if d["kind"] == "normal":
+            out.append(src.normal(like))
+        elif d["kind"] == "uniform":
+            out.append(src.uniform(like, d["low"], d["high"]))
+        else:
+            raise ValueError(f"unknown kind of draw: {d['kind']!r}")
+    return out

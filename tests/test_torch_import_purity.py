@@ -1,7 +1,8 @@
 """Importing the port pulls in neither JAX nor Triton, initialises no CUDA
 context and builds nothing; nor does building the eval CLI's parser. The
-data package and the training CLIs import no matplotlib either: the card's
-machine has none."""
+data package, the training CLIs, the training and serving packages, the
+export CLI and ``cli.build_framecache`` import no matplotlib either: the
+card's machine has none."""
 
 import os
 import re
@@ -46,7 +47,9 @@ def test_importing_every_module_keeps_jax_triton_and_cuda_out(tmp_path):
                 "evaluation.evaluator", "evaluation.averagemodel", "cli.common",
                 "cli.eval_settings", "cli.main_rfn", "cli.main_srnn", "cli.main_vrnn",
                 "cli.main_svg", "data.shapes", "data.kth", "data.bair", "data.png",
-                "parallel.distributed", "parallel.data_parallel"):
+                "parallel.distributed", "parallel.data_parallel", "ops.library",
+                "data._native", "training.plots", "cli.export_serving",
+                "cli.build_framecache"):
         assert f"recurrent_flows_tpu_torch.{mod}" in names.split(), mod
     assert (sorted(build.iterdir()) if build.exists() else None) == before
 
@@ -54,9 +57,14 @@ def test_importing_every_module_keeps_jax_triton_and_cuda_out(tmp_path):
 _TRAINING_PATH = """
 import sys
 import recurrent_flows_tpu_torch.data
-from recurrent_flows_tpu_torch.cli import main_rfn, main_srnn, main_svg, main_vrnn
+import recurrent_flows_tpu_torch.serving
+import recurrent_flows_tpu_torch.training
+from recurrent_flows_tpu_torch.cli import (build_framecache, export_serving, main_rfn,
+                                           main_srnn, main_svg, main_vrnn)
 for mod in (main_rfn, main_srnn, main_svg, main_vrnn):
     mod.build_parser().parse_args([])
+export_serving.build_parser().parse_args(["--checkpoint", "c", "--out", "o", "--batch_size", "1"])
+build_framecache.build_parser().parse_args(["--dataset", "kth", "--data_root", "r"])
 bad = [m for m in sys.modules if m.split(".")[0] in ("matplotlib", "PIL", "jax")]
 assert not bad, bad
 """

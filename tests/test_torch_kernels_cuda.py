@@ -8,7 +8,7 @@ Tolerances as in chip_smoke.py, each element within tol·(1+|ref|): 1e-5 for
 the elementwise kernels and the folded 1x1, 1e-4 for the coupling's logdet
 (a sum of up to 2,048 terms), one GlowStep and the chain after K steps of
 three convs each; two launches of any kernel on the same inputs must agree
-bit for bit. Each autograd Function's
+bit for bit. Each kernel operator's registered
 gradients are held to autograd through the plain version, 1e-4 of
 1+|ref| (the forward values they start from differ by the kernel's
 rounding). The plain side runs with TF32 off.
@@ -418,7 +418,8 @@ def test_actnorm_invconv_kernel_on_unaligned_rows(cuda, c):
 
 def _grads_match(fn, ref, inputs, tol=1e-4):
     """Gradients of a random projection of every output, through the
-    kernel's autograd Function and through autograd of the plain version."""
+    kernel operator's registered backward and through autograd of the plain
+    version."""
     def run(f):
         ins = [t.detach().clone().requires_grad_(True) for t in inputs]
         outs = f(ins)

@@ -3,10 +3,10 @@
 versions, against the JAX package's jnp functions, its Pallas kernels in
 interpret mode and its custom VJPs, on the same numpy inputs.
 
-On the CPU a wrapper takes its plain version and autograd differentiates
-it directly; the CUDA kernels and their autograd Functions are compared
-with the plain versions on the card (tests/test_torch_kernels_cuda.py,
-chip_smoke.py).
+On the CPU a wrapper's operator takes its plain version, differentiated
+by the operator's registered backward; the CUDA kernels and that backward
+are compared with the plain versions on the card
+(tests/test_torch_kernels_cuda.py, chip_smoke.py).
 
 Tolerances (float32 on both sides): a 1x1 product over C <= 16 channels
 agrees to a few ulps (rtol/atol 1e-5 for values of order 1-10); one
