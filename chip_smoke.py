@@ -127,7 +127,27 @@ configurations: A the preset as it is, B ``coupling_impl='fused'``, C
     to ``Predictor(seed=s).predict`` on the same checkpoint and context
     (with deterministic cuDNN algorithms for that comparison: by default
     SRNN's transposed convs sum with atomics, and two eager requests
-    differ in the last bits).
+    differ in the last bits);
+16. the standalone models: the folded 1x1, the coupling and ``glowchain``
+    against their plain versions at the shapes GlowImage and cGlow give
+    them (device times beside bounds, bit-for-bit repeats); ``GlowImage``
+    at BASELINE config 3 (64x64 gray, L=3, K=8, 128 units, conditions of
+    8) on Moving MNIST made on the card (B=16, T=6: 96 frames a step):
+    ``Trainer.build`` (DDI), 3 steps of A (``chain_impl='off'``) and one of
+    C (``'all'``), ``sample(16)`` with ``'sample'`` (a warm-up and 3
+    requests), exact launches, ms and peak GiB, then a step's nll and named
+    gradients and a sample card against CPU; cGlow (32x32 RGB, L=2, K=4,
+    conditions of 32, B=16) on a PNG tree of colour images through
+    ``prepare_celeba`` -> ``get_celeba`` -> ``get_joint_conditioned_data``:
+    the DDI pass, 3 Adam steps and 3 samples with exact launches, card
+    against CPU; VRNN-1D on sinusoids (30 Adam steps, the loss must fall;
+    ``predict(5, 4)``); RealNVP-2D on two-moons (400 steps: the loss must
+    fall by more than 0.5 and the samples lie within 0.25 of the moons on
+    average), one step each of the conditional RealNVP and
+    ``AutoregFlow2D``; ``rfn_mnist_production`` with the VGG ops 'squeeze'
+    and 'deconv' (build, a step of A, a request, exact launches); and
+    ``scripts/torch_validate_training.py --model glow --image_size 64`` for
+    40 steps (its verdict recorded, ``improved`` not asserted).
 
 Any failure raises and the script exits non-zero. The last two lines of
 standard output are the kernels' JSON record (with each kernel's launches
@@ -3066,6 +3086,581 @@ def export_phase(record) -> dict:
     return paths
 
 
+# --- phase 16: the standalone models ------------------------------------------
+
+STANDALONE_DIR = ROOT / "runs" / "chip_smoke_standalone"
+# GlowImage at BASELINE config 3 with validate_training.py's widths (64x64
+# gray, L=3, K=8, 128 units, conditions of 8 channels), Moving MNIST of B=16
+# sequences of 6 frames: 96 frames per step, 16 images per sample request
+GLOW_IMG, GLOW_B, GLOW_T, GLOW_COND, GLOW_STEPS_A = 64, 16, 6, 8, 3
+# cGlow at the notebook's L and K (SURVEY.md:167), the default widths (256
+# and 512 units), conditions of 32 channels: 32x32 RGB, B=16, the box 8
+CGLOW_IMG, CGLOW_B, CGLOW_COND, CGLOW_STEPS, CGLOW_IMAGES = 32, 16, 32, 3, 48
+# (B, H = W, C, cond, U, K, reverse) of glowchain on the standalone models'
+# paths: each scale a plan takes, sampled (reverse, B=16) and trained
+# (forward: GlowImage's 96 frames, cGlow's 16 images)
+STANDALONE_CHAINS = [(b, hw, c, cc, u, k, rev)
+                     for hw, c, cc, u, k, b_train in ((16, 8, 8, 128, 8, 96),
+                                                      (8, 16, 8, 128, 8, 96),
+                                                      (16, 12, 32, 256, 4, 16),
+                                                      (8, 24, 32, 256, 4, 16))
+                     for b, rev in ((16, True), (b_train, False))]
+# x [B·H·W, C] of the folded 1x1 (every module-path step's forward):
+# GlowImage's three scales at 96 frames, cGlow's two at B=16
+STANDALONE_AINV = [(96 * 1024, 4), (96 * 256, 8), (96 * 64, 16), (16 * 256, 12),
+                   (16 * 64, 24)]
+# (B, H = W, C/2, reverse) of the coupling tail: GlowImage's scale 0 sampled
+# (the one scale without a plan), then its three scales and cGlow's two trained
+STANDALONE_COUPLING = [(16, 32, 2, True), (96, 32, 2, False), (96, 16, 4, False),
+                       (96, 8, 8, False), (16, 16, 6, False), (16, 8, 12, False)]
+# card vs CPU of the standalone models: the nll within TOL_STEP_LOSS·(1+|ref|);
+# the gradients of the base prior's output conv and of the learned base
+# condition (a direct term) and of the first coupling net's first conv and
+# scale 0's learned condition (through the flow's stream) as phase 7's; a
+# sample elementwise within phase 5's tolerance of a first predicted frame
+GLOW_GRADS = (("flow.prior_out.conv.kernel", "base", "flow.split0.conv.conv.kernel"),
+              ("cond_0", "flow.scale0_step0.affine.net0.conv.kernel"))
+CGLOW_GRADS = (("flow.prior_out.conv.kernel", "flow.split0.conv.conv.kernel"),
+               ("enc0.kernel", "flow.scale0_step0.affine.net0.conv.kernel"))
+# the two-moons learning check of test_two_moons_training.py, at the issue's
+# widths: 6 couplings of 64 units, 512 points per step, 400 Adam steps
+MOONS_STEPS, MOONS_N = 400, 512
+
+
+def check_standalone_shapes(record):
+    """Phase 16's kernels against their plain versions at the shapes the
+    standalone models give them, with phase 3's tolerances, a bit-for-bit
+    repeat and device times beside their bounds. Returns per kernel the
+    worst error and the times summed over its shapes."""
+    from recurrent_flows_tpu_torch.ops import (actnorm_invconv, actnorm_invconv_ref,
+                                               coupling_transform, coupling_transform_ref,
+                                               glowchain, glowchain_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    rnd = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale  # noqa: E731
+    out = {}
+
+    def add(name, row):
+        t = out.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                      library_ms=None, n_bytes=0, flops=0))
+        t["max_abs_err"] = max(t["max_abs_err"], row["err"])
+        for k in ("ms", "plain_ms", "n_bytes", "flops"):
+            t[k] += row[k]
+        if row.get("library_ms") is not None:
+            t["library_ms"] = (t["library_ms"] or 0.0) + row["library_ms"]
+        row.update(bound(row["n_bytes"], row["flops"]))
+        record.setdefault(name, []).append(row)
+        print(f"{name} {row['shape']}{' reverse' if row.get('reverse') else ''}: err "
+              f"{row['err']:.3e}, {row['ms']:.5f} ms, plain {row['plain_ms']:.5f}"
+              + (f", library {row['library_ms']:.5f}" if row.get("library_ms") else "")
+              + f", bound {row['bound_ms']:.6f} ({row['bound_by']})")
+
+    for rows, c in STANDALONE_AINV:
+        x, bias, logs = rnd(rows, c), rnd(c, scale=0.3), rnd(c, scale=0.3)
+        w = torch.linalg.qr(rnd(c, c))[0].contiguous()
+        e = check_elementwise(f"actnorm_invconv [{rows}, {c}]",
+                              (actnorm_invconv(x, bias, logs, w),),
+                              (actnorm_invconv_ref(x, bias, logs, w),), (TOL_INVCONV,))
+        check_repeats(f"actnorm_invconv [{rows}, {c}]",
+                      lambda: (actnorm_invconv(x, bias, logs, w),))
+        add("actnorm_invconv", dict(
+            shape=[rows, c], err=e, **ainv_times(actnorm_invconv, x, bias, logs, w),
+            plain_ms=small_ms(lambda: actnorm_invconv_ref(x, bias, logs, w)),
+            n_bytes=nbytes(x, bias, logs, w, x), flops=2 * x.numel() * c + 2 * x.numel()))
+    for shape, rev, (z2, shift, s) in coupling_cases(rnd, STANDALONE_COUPLING):
+        e = max(check_elementwise(f"coupling_transform {shape} reverse={r}",
+                                  coupling_transform(z2, shift, s, r),
+                                  coupling_transform_ref(z2, shift, s, r),
+                                  (TOL_ELEMENTWISE, TOL_COUPLING_LD)) for r in (False, True))
+        check_repeats(f"coupling_transform {shape}",
+                      lambda: coupling_transform(z2, shift, s, rev))
+        add("coupling_transform", dict(
+            shape=shape, reverse=rev, err=e,
+            **coupling_times(coupling_transform, z2, shift, s, rev),
+            plain_ms=small_ms(lambda: coupling_transform_ref(z2, shift, s, rev)),
+            n_bytes=nbytes(z2, shift, s, z2) + 4 * shape[0], flops=4 * z2.numel()))
+    for b, hw, c, cc, u, k, rev in STANDALONE_CHAINS:
+        ps = glow_params(rnd, k, c, cc, u)
+        x, cond = rnd(b, hw, hw, c), rnd(b, hw, hw, cc)
+        shape = [b, hw, hw, c]
+        got = glowchain(x, cond, ps, "realnvp", rev)
+        torch.cuda.synchronize()
+        e = check_elementwise(f"glowchain {shape} cond {cc} K={k} reverse={rev}", got,
+                              glowchain_ref(x, cond, ps, "realnvp", rev),
+                              (TOL_CHAIN, TOL_CHAIN_LD))
+        check_repeats(f"glowchain {shape} reverse={rev}",
+                      lambda: glowchain(x, cond, ps, "realnvp", rev))
+        add("glowchain", dict(
+            shape=shape, cond=cc, u=u, k=k, reverse=rev, err=e,
+            ms=cuda_ms(lambda: glowchain(x, cond, ps, "realnvp", rev), iters=5),
+            plain_ms=cuda_ms(lambda: glowchain_ref(x, cond, ps, "realnvp", rev), iters=5),
+            n_bytes=nbytes(x, cond, *ps, x) + 4 * b, flops=k * glowstep_flops(x, cond, u)))
+    for t in out.values():
+        t.update(bound(t.pop("n_bytes"), t.pop("flops")))
+    return out
+
+
+def no_kernels(**counts) -> dict:
+    """A launch count of every kernel: 0 unless given."""
+    return {**dict.fromkeys(SOURCES, 0), **counts}
+
+
+def grads_card_vs_cpu(label, cpu, gpu, direct, stream) -> dict:
+    """The named gradients of two copies of a model after the same
+    backward, card against CPU, within phase 7's tolerances of the largest
+    |entry|."""
+    tols = {**dict.fromkeys(direct, TOL_STEP_GRAD_DIRECT),
+            **dict.fromkeys(stream, TOL_STEP_GRAD_STREAM)}
+    g_cpu, g_gpu = dict(cpu.named_parameters()), dict(gpu.named_parameters())
+    errs = {}
+    for n, tol in tols.items():
+        ref = g_cpu[n].grad
+        scale = ref.abs().max().item()
+        errs[n] = (g_gpu[n].grad.cpu() - ref).abs().max().item() / scale
+        if not (scale > 0 and errs[n] <= tol):
+            raise AssertionError(f"{label}: gradient of {n} disagrees, {errs[n]:.2e} of "
+                                 f"max |g| {scale:.2e} (> {tol})")
+    print(f"{label} card vs CPU gradients, err of max |g|: "
+          + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()))
+    return errs
+
+
+def nll_card_vs_cpu(label, cpu_nll, gpu_nll) -> float:
+    err = ((gpu_nll.detach().cpu() - cpu_nll.detach()).abs()
+           / (1 + cpu_nll.detach().abs())).max().item()
+    if not err <= TOL_STEP_LOSS:
+        raise AssertionError(f"{label}: nll card vs CPU {err:.2e} of 1+|ref|")
+    return err
+
+
+def sample_card_vs_cpu(label, cpu_fn, gpu_fn) -> float:
+    """One sample on the CPU with recorded draws and on the card with them
+    replayed; the largest |err| within phase 5's first-frame tolerance."""
+    from recurrent_flows_tpu_torch.utils import NoiseSource
+
+    rec = RecordedNoise(NoiseSource(generator=torch.Generator().manual_seed(7)))
+    with torch.no_grad():
+        ref = cpu_fn(rec)
+        got = gpu_fn(NoiseSource(replay=rec.draws)).cpu()
+    err = (got - ref).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= TOL_FIRST_FRAME):
+        raise AssertionError(f"{label}: sample card vs CPU max |err| {err:.3e}")
+    return err
+
+
+def glow_image_phase(record) -> dict:
+    """GlowImage on Moving MNIST made on the card: ``Trainer.build`` (DDI),
+    steps of A (``chain_impl='off'``) and one of C (``'all'``), then
+    ``sample(16)`` with ``chain_impl='sample'`` (a warm-up and 3
+    requests), exact launches; then one small step and a sample, card
+    against CPU."""
+    from recurrent_flows_tpu_torch.config import GlowConfig, TrainConfig
+    from recurrent_flows_tpu_torch.data import MovingMNIST
+    from recurrent_flows_tpu_torch.flows.glow import kernel_fits
+    from recurrent_flows_tpu_torch.models import GlowImage
+    from recurrent_flows_tpu_torch.training import Trainer
+    from recurrent_flows_tpu_torch.utils import NoiseSource, float32_precision
+
+    cfg = GlowConfig(L=3, K=8, n_units_affine=128, n_units_prior=128)
+    tcfg = TrainConfig(batch_size=GLOW_B, n_frames=GLOW_T, learning_rate=2e-4)
+
+    def model_for(chain_impl, state=None):
+        m = GlowImage(1, GLOW_IMG, dataclasses.replace(cfg, chain_impl=chain_impl),
+                      cond_channels=GLOW_COND, base_channels=GLOW_COND, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+        if state is None:
+            perturb_(m, seed=1)
+        else:
+            m.load_state_dict(state)
+        return m
+
+    data = MovingMNIST(digit_bank="synthetic", digit_size=GLOW_IMG // 2, num_digits=1,
+                       seq_len=GLOW_T, image_size=GLOW_IMG, device="cuda")
+    model = model_for("off")
+    chain_scales = [l for l, (hw, c, cc) in enumerate(model.flow.scale_shapes)
+                    if kernel_fits(cfg, GLOW_B, hw, hw, c, cc)]
+    frames = GLOW_B * GLOW_T
+    train_scales = [l for l, (hw, c, cc) in enumerate(model.flow.scale_shapes)
+                    if kernel_fits(cfg, frames, hw, hw, c, cc)]
+    if chain_scales != [1, 2] or train_scales != [1, 2]:
+        raise AssertionError(f"GlowImage: glowchain takes scales {chain_scales} at B=16 "
+                             f"and {train_scales} at 96 frames, expected [1, 2]")
+    t0 = time.perf_counter()
+    trainer = Trainer(model, tcfg, data, device="cuda").build()
+    torch.cuda.synchronize()
+    rec = dict(build_s=time.perf_counter() - t0, steps={})
+    kl = cfg.L * cfg.K
+    paths = {}
+    for name, impl, n_steps, want in (
+            ("A", "off", GLOW_STEPS_A, no_kernels(actnorm_invconv=kl, coupling_transform=kl)),
+            ("C", "all", 1, no_kernels(actnorm_invconv=cfg.K, coupling_transform=cfg.K,
+                                       glowchain=2))):
+        if impl != "off":
+            trainer.model = model_for(impl, model.state_dict())
+            trainer.optimizer = trainer._adam()
+        total, steps = dict.fromkeys(SOURCES, 0), []
+        for i in range(n_steps):
+            batch = data.sample(trainer.generator, GLOW_B)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m, counts = launched(lambda: {k: float(v) for k, v in trainer.train_step(
+                batch, 1.0, tcfg.learning_rate).items()})
+            ms = (time.perf_counter() - t0) * 1e3
+            if counts != want or not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"GlowImage step {name}: launches {counts}, expected "
+                                     f"{want}; metrics {m}")
+            for k, v in counts.items():
+                total[k] += v
+            gib = torch.cuda.max_memory_allocated() / 2**30
+            steps.append(dict(ms=ms, peak_gib=gib, **m))
+            print(f"GlowImage step {name} {i}: {ms:.1f} ms, peak {gib:.2f} GiB, nll "
+                  f"{m['nll']:.1f}, {m['bits']:.4f} bits/dim, launches {counts}")
+        rec["steps"][name] = steps
+        paths[f"glow_image_train_{name}"] = total
+    sampler = model_for("sample", trainer.model.state_dict())
+    want = no_kernels(coupling_transform=cfg.K, glowchain=2)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        sampler.sample(GLOW_B, NoiseSource(generator=gen))  # warm-up
+        total, ms_list = dict.fromkeys(SOURCES, 0), []
+        for i in range(N_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, counts = launched(lambda: sampler.sample(GLOW_B, NoiseSource(generator=gen)))
+            torch.cuda.synchronize()
+            ms_list.append((time.perf_counter() - t0) * 1e3)
+            if counts != want or x.shape != (GLOW_B, GLOW_IMG, GLOW_IMG, 1) \
+                    or not torch.isfinite(x).all():
+                raise AssertionError(f"GlowImage sample {i}: launches {counts}, expected "
+                                     f"{want}; shape {tuple(x.shape)}")
+            for k, v in counts.items():
+                total[k] += v
+    paths["glow_image_sample"] = total
+    rec["sample_ms"] = ms_list
+    print(f"GlowImage sample({GLOW_B}): {', '.join(f'{t:.1f}' for t in ms_list)} ms, "
+          f"launches {want} each; max |x| {x.abs().max().item():.3f}")
+
+    # card vs CPU: one step's nll and named gradients on 2x2 frames, a sample of 2
+    gpu = model_for("off", trainer.model.state_dict())
+    cpu = copy.deepcopy(gpu).cpu()
+    x = data.sample(torch.Generator(device="cuda").manual_seed(4), 2)[:, :2] - 0.5
+    noise = RecordedNoise(NoiseSource(generator=torch.Generator().manual_seed(5)))
+    with float32_precision():
+        nll_cpu = cpu(x.cpu(), noise)
+        nll_gpu = gpu(x, NoiseSource(replay=noise.draws))
+        nll_cpu.mean().backward()
+        nll_gpu.mean().backward()
+        rec["card_vs_cpu"] = dict(
+            nll=nll_card_vs_cpu("GlowImage", nll_cpu, nll_gpu),
+            grads=grads_card_vs_cpu("GlowImage", cpu, gpu, *GLOW_GRADS),
+            sample=sample_card_vs_cpu("GlowImage", lambda n: cpu.sample(2, n),
+                                      lambda n: gpu.sample(2, n)))
+    print(f"GlowImage card vs CPU: {rec['card_vs_cpu']}")
+    record["glow_image"] = rec
+    return paths
+
+
+def cglow_phase(record) -> dict:
+    """cGlow on a PNG tree of procedural colour images the phase writes,
+    through ``prepare_celeba`` -> ``get_celeba`` ->
+    ``get_joint_conditioned_data(box=8)`` (context the boxed image, target
+    the image): the data-dependent init, Adam steps and samples with exact
+    launches, then card against CPU."""
+    import shutil
+
+    from recurrent_flows_tpu_torch.config import GlowConfig
+    from recurrent_flows_tpu_torch.data import (get_celeba, get_joint_conditioned_data,
+                                                prepare_celeba)
+    from recurrent_flows_tpu_torch.data.png import write_png
+    from recurrent_flows_tpu_torch.models import ConditionalGlowImage
+    from recurrent_flows_tpu_torch.utils import NoiseSource, float32_precision
+
+    raw = STANDALONE_DIR / "celeba_raw"
+    shutil.rmtree(STANDALONE_DIR, ignore_errors=True)
+    raw.mkdir(parents=True)
+    rng = np.random.default_rng(16)
+    yy, xx = np.mgrid[:54, :44] / 44.0
+    for i in range(CGLOW_IMAGES):  # non-square like img_align_celeba: smooth colour fields
+        f = rng.uniform(1, 4, 3)
+        img = 0.5 + 0.5 * np.sin(f * (yy[..., None] + 0.7 * xx[..., None])
+                                 + rng.uniform(0, 6, 3))
+        write_png(str(raw / f"{i:06d}.png"), np.rint(img * 255).astype(np.uint8))
+    t0 = time.perf_counter()
+    n = prepare_celeba(str(raw), str(STANDALONE_DIR / "data" / "celeba_32.pkl"),
+                       size=CGLOW_IMG, device="cuda")
+    images = get_celeba(str(STANDALONE_DIR / "data"))
+    boxed, inner = get_joint_conditioned_data(images, box=8)
+    rec = dict(prepare_s=time.perf_counter() - t0, n_images=n)
+    if images.shape != (CGLOW_IMAGES, CGLOW_IMG, CGLOW_IMG, 3) or inner.shape[1:] != (8, 8, 3):
+        raise AssertionError(f"cGlow data: {images.shape}, {inner.shape}")
+    ctx_all = torch.tensor(boxed, device="cuda") - 0.5
+    x_all = torch.tensor(images, device="cuda") - 0.5
+
+    cfg = GlowConfig(L=2, K=4)
+
+    def model_for(chain_impl, state=None):
+        m = ConditionalGlowImage(3, CGLOW_IMG, dataclasses.replace(cfg, chain_impl=chain_impl),
+                                 cond_channels=CGLOW_COND, device="cuda",
+                                 generator=torch.Generator().manual_seed(0))
+        if state is not None:
+            m.load_state_dict(state)
+        return m
+
+    model = model_for("off")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    with torch.no_grad(), float32_precision():
+        model.ddi(x_all[:CGLOW_B], ctx_all[:CGLOW_B], NoiseSource(generator=gen))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    kl = cfg.L * cfg.K
+    want = no_kernels(actnorm_invconv=kl, coupling_transform=kl)
+    total, losses, step_ms = dict.fromkeys(SOURCES, 0), [], []
+    for i in range(CGLOW_STEPS):
+        sl = slice(i * CGLOW_B, (i + 1) * CGLOW_B)
+        t0 = time.perf_counter()
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            with float32_precision():
+                loss = model.log_prob(x_all[sl], ctx_all[sl], NoiseSource(generator=gen)).mean()
+                loss.backward()
+            opt.step()
+            return loss.item()
+        loss, counts = launched(step)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if counts != want or not np.isfinite(loss):
+            raise AssertionError(f"cGlow step {i}: launches {counts}, expected {want}; "
+                                 f"loss {loss}")
+        for k, v in counts.items():
+            total[k] += v
+        losses.append(loss)
+    paths = {"cglow_train": total}
+    sampler = model_for("sample", model.state_dict())
+    want_s = no_kernels(glowchain=cfg.L)
+    total, sample_ms = dict.fromkeys(SOURCES, 0), []
+    with torch.no_grad():
+        for i in range(N_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, counts = launched(lambda: sampler.sample(ctx_all[:CGLOW_B],
+                                                        NoiseSource(generator=gen)))
+            torch.cuda.synchronize()
+            sample_ms.append((time.perf_counter() - t0) * 1e3)
+            if counts != want_s or s.shape != (CGLOW_B, CGLOW_IMG, CGLOW_IMG, 3) \
+                    or not torch.isfinite(s).all():
+                raise AssertionError(f"cGlow sample {i}: launches {counts}, expected "
+                                     f"{want_s}; shape {tuple(s.shape)}")
+            for k, v in counts.items():
+                total[k] += v
+    paths["cglow_sample"] = total
+    rec.update(losses=losses, step_ms=step_ms, sample_ms=sample_ms)
+    print(f"cGlow: {n} images prepared in {rec['prepare_s']:.2f} s; steps "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} ms (launches {want}), nll {losses}; "
+          f"samples {', '.join(f'{t:.1f}' for t in sample_ms)} ms (launches {want_s})")
+
+    gpu = model_for("off", model.state_dict())
+    cpu = copy.deepcopy(gpu).cpu()
+    x, ctx = x_all[:2], ctx_all[:2]
+    noise = RecordedNoise(NoiseSource(generator=torch.Generator().manual_seed(5)))
+    with float32_precision():
+        nll_cpu = cpu.log_prob(x.cpu(), ctx.cpu(), noise)
+        nll_gpu = gpu.log_prob(x, ctx, NoiseSource(replay=noise.draws))
+        nll_cpu.mean().backward()
+        nll_gpu.mean().backward()
+        rec["card_vs_cpu"] = dict(
+            nll=nll_card_vs_cpu("cGlow", nll_cpu, nll_gpu),
+            grads=grads_card_vs_cpu("cGlow", cpu, gpu, *CGLOW_GRADS),
+            sample=sample_card_vs_cpu("cGlow", lambda n: cpu.sample(ctx.cpu(), n),
+                                      lambda n: gpu.sample(ctx, n)))
+    print(f"cGlow card vs CPU: {rec['card_vs_cpu']}")
+    record["cglow"] = rec
+    return paths
+
+
+def toy_models_phase(record):
+    """VRNN-1D on sinusoids (30 Adam steps, the loss must fall; a
+    ``predict``), RealNVP-2D on two-moons (400 steps, both thresholds of
+    ``test_two_moons_training.py``), one step each of the conditional
+    RealNVP on rotating moons and ``AutoregFlow2D``. No kernel of the port
+    runs here: these are small dense programs."""
+    from recurrent_flows_tpu_torch.data import (RotatingTwoMoonsConditionalSampler,
+                                                SinusWithNoise, two_moons)
+    from recurrent_flows_tpu_torch.flows import AutoregFlow2D, RealNVP2D
+    from recurrent_flows_tpu_torch.models import VRNN1D
+    from recurrent_flows_tpu_torch.utils import NoiseSource, float32_precision
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    noise = NoiseSource(generator=gen)
+    rec = {}
+
+    def adam_steps(model, loss_fn, steps, lr):
+        opt = torch.optim.Adam(model.parameters(), lr=lr)
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            with float32_precision():
+                loss = loss_fn()
+                loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        losses = [float(v) for v in losses]
+        return losses, (time.perf_counter() - t0) * 1e3 / steps
+
+    vrnn = VRNN1D(device="cuda", generator=torch.Generator().manual_seed(0))
+    data = SinusWithNoise(seq_len=100, device="cuda")
+
+    def vrnn_loss():
+        out = vrnn.loss(data.sample(gen, 32), noise)
+        return out["nll"] + out["kl_free_bits"]
+    (losses, ms), counts = launched(lambda: adam_steps(vrnn, vrnn_loss, 30, 3e-3))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"VRNN-1D: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    with torch.no_grad():
+        true_x, preds = vrnn.predict(data.sample(gen, 32), 5, 4, noise)
+    if preds.shape != (5, 32, 1) or true_x.shape != (4, 32, 1) or not torch.isfinite(preds).all():
+        raise AssertionError(f"VRNN-1D predict: {tuple(preds.shape)}")
+    rec["vrnn1d"] = dict(first_loss=losses[0], last_loss=losses[-1], ms_per_step=ms)
+    print(f"VRNN-1D (h 64, z 8, feat 32; sinusoids B=32, T=100): 30 steps, loss "
+          f"{losses[0]:.1f} -> {losses[-1]:.1f}, {ms:.1f} ms/step; predict(5, 4) "
+          f"{tuple(preds.shape)}")
+
+    flow = RealNVP2D(n_couplings=6, hidden=64, device="cuda",
+                     generator=torch.Generator().manual_seed(1))
+    moons_nll = lambda: -flow.log_prob(two_moons(noise, MOONS_N, device="cuda")).mean()  # noqa: E731
+    (losses, ms), c2 = launched(lambda: adam_steps(flow, moons_nll, MOONS_STEPS, 2e-3))
+    with torch.no_grad():
+        samples = flow.sample(MOONS_N, noise)
+        ref = two_moons(noise, 2048, device="cuda")
+        dist = torch.cdist(samples, ref).min(1).values.mean().item()
+    if not (losses[-1] < losses[0] - 0.5 and dist < 0.25):
+        raise AssertionError(f"RealNVP-2D: loss {losses[0]:.3f} -> {losses[-1]:.3f} "
+                             f"(must fall by > 0.5), sample distance {dist:.3f} (< 0.25)")
+    rec["realnvp2d"] = dict(first_loss=losses[0], last_loss=losses[-1], ms_per_step=ms,
+                            sample_mean_distance=dist)
+    print(f"RealNVP-2D (6 couplings, 64 units; two-moons, {MOONS_N} a step): "
+          f"{MOONS_STEPS} steps, loss {losses[0]:.3f} -> {losses[-1]:.3f}, {ms:.2f} "
+          f"ms/step; samples' mean distance to the moons {dist:.4f}")
+
+    cond = RealNVP2D(n_couplings=6, hidden=64, context_dim=1, device="cuda")
+    moons = RotatingTwoMoonsConditionalSampler(device="cuda")
+    x, theta = next(moons.loader(noise, MOONS_N, 1))
+    (cl, _), c3 = launched(lambda: adam_steps(cond, lambda: -cond.log_prob(x, theta).mean(),
+                                              1, 2e-3))
+    auto = AutoregFlow2D(device="cuda")
+    (al, _), c4 = launched(lambda: adam_steps(auto, lambda: -auto.log_prob(x).mean(), 1, 2e-3))
+    if not np.isfinite(cl + al).all() or any(v for c in (counts, c2, c3, c4)
+                                             for v in c.values()):
+        raise AssertionError(f"conditional RealNVP {cl}, AutoregFlow2D {al}; launches "
+                             f"{[counts, c2, c3, c4]}")
+    rec["conditional_realnvp_loss"], rec["autoreg_loss"] = cl[0], al[0]
+    print(f"conditional RealNVP on rotating moons: one step, loss {cl[0]:.3f}; "
+          f"AutoregFlow2D: one step, loss {al[0]:.3f}")
+    record["toy_models"] = rec
+
+
+def rfn_vgg_ops_phase(record, rng) -> dict:
+    """``rfn_mnist_production`` with the VGG ops: the extractor's first
+    'pool' replaced by 'squeeze', the upscaler's first 'upsample' by
+    'deconv' and its second by 'squeeze'. ``Trainer.build``, one step of A
+    and one request (``chain_impl='sample'``), exact launches."""
+    from recurrent_flows_tpu_torch.config import rfn_mnist_production
+    from recurrent_flows_tpu_torch.models import RFN
+    from recurrent_flows_tpu_torch.serving import Predictor
+    from recurrent_flows_tpu_torch.training import Trainer
+
+    mcfg, tcfg = rfn_mnist_production()
+    ext, up = list(mcfg.extractor_structure), list(mcfg.upscaler_structure)
+    ext[0] = tuple("squeeze" if op == "pool" else op for op in ext[0])
+    up[1] = tuple("deconv" if op == "upsample" else op for op in up[1])
+    up[2] = tuple("squeeze" if op == "upsample" else op for op in up[2])
+    mcfg = dataclasses.replace(mcfg, extractor_structure=tuple(ext),
+                               upscaler_structure=tuple(up))
+    model = RFN(mcfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    perturb_(model, seed=1)
+    batch = moving_squares(rng, tcfg.batch_size, tcfg.n_frames, mcfg.image_size)
+    t0 = time.perf_counter()
+    trainer = Trainer(model, tcfg, [batch], device="cuda").build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    want = train_launches(mcfg, "A", True, tcfg.n_frames - 1, [])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = counted("RFN with the VGG ops, step A", lambda: {k: float(v) for k, v in
+                trainer.train_step(batch, tcfg.beta_min, tcfg.learning_rate).items()}, want)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.isfinite(v) for v in m.values()):
+        raise AssertionError(f"RFN with the VGG ops: metrics {m}")
+    paths = {"rfn_vgg_train": want}
+    served = RFN(with_glow(mcfg, chain_impl="sample"), device="cuda")
+    served.load_state_dict(model.state_dict())
+    pred = Predictor(served, tcfg, n_conditions=N_COND, n_predictions=N_PRED, seed=0,
+                     device="cuda")
+    want_r = request_launches(mcfg, range(1, mcfg.L), N_COND)
+    ctx = moving_squares(rng, BATCH, N_COND, mcfg.image_size)
+    pred.predict(ctx)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = counted("RFN with the VGG ops, request", lambda: pred.predict(ctx), want_r)
+    request_ms = (time.perf_counter() - t0) * 1e3
+    check_frames("RFN with the VGG ops, request", out,
+                 (BATCH, N_PRED, mcfg.image_size, mcfg.image_size, 1))
+    paths["rfn_vgg_request"] = want_r
+    record["rfn_vgg_ops"] = dict(
+        extractor=mcfg.extractor_structure, upscaler=mcfg.upscaler_structure,
+        build_s=build_s, step_ms=step_ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        request_ms=request_ms, metrics=m)
+    print(f"RFN with the VGG ops: build {build_s:.2f} s, step A {step_ms:.1f} ms (launches "
+          f"{want}), request {request_ms:.1f} ms (launches {want_r})")
+    return paths
+
+
+def validate_glow(record):
+    """``scripts/torch_validate_training.py --model glow --image_size 64``
+    for 40 steps, in this process (``run_one``): its verdict is recorded
+    and neither ``improved`` nor a finite loss is asserted. The JAX script
+    diverges here as well: the data-dependent init sees the learned
+    conditions at their zero init, so the actnorms of the nets that read
+    only a condition (the base prior's, the splits') take logs =
+    log(1/1e-6), and once Adam moves a condition their outputs explode
+    (both packages on the CPU, 32x32: bits per dimension ~3 for three
+    steps, then ~1e23)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_validate_training", ROOT / "scripts" / "torch_validate_training.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    args = mod.build_parser().parse_args(["--model", "glow", "--image_size", "64",
+                                          "--steps", "40",
+                                          "--out", str(STANDALONE_DIR / "validate")])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        verdict = mod.run_one("glow", args)
+    losses_png = STANDALONE_DIR / "validate" / "glow" / "png_folder" / "losses.png"
+    if "plotter failed" in out.getvalue() or not losses_png.exists():
+        raise AssertionError(f"torch_validate_training glow: {out.getvalue()[-500:]}")
+    record["validate_glow"] = verdict
+    print(f"torch_validate_training --model glow --image_size 64, 40 steps: {verdict}")
+
+
+def standalone(rng, record) -> tuple:
+    """Phase 16 (see the module docstring). Returns (launches per path,
+    the kernels at the standalone models' shapes)."""
+    from recurrent_flows_tpu_torch.utils import float32_precision
+
+    t0 = time.perf_counter()
+    with float32_precision():
+        shapes = check_standalone_shapes(record.setdefault("kernels", {}))
+    print(f"phase 16 kernels done in {time.perf_counter() - t0:.0f} s")
+    paths = glow_image_phase(record)
+    paths.update(cglow_phase(record))
+    toy_models_phase(record)
+    paths.update(rfn_vgg_ops_phase(record, rng))
+    validate_glow(record)
+    torch.cuda.empty_cache()
+    return paths, shapes
+
+
 SOURCES = {
     "coupling_transform": ("cuda", "recurrent_flows_tpu_torch/csrc/coupling.cu",
                            "recurrent_flows_tpu/ops/pallas/fused.py:75"),
@@ -3170,6 +3765,13 @@ def main() -> None:
     record["export"]["phase_s"] = time.perf_counter() - t0
     print(f"export done at {time.perf_counter() - t_start:.0f} s "
           f"(phase 15: {record['export']['phase_s']:.0f} s)")
+    record["standalone"] = {}
+    t0 = time.perf_counter()
+    standalone_paths, standalone_shapes = standalone(rng, record["standalone"])
+    paths.update(standalone_paths)
+    record["standalone"]["phase_s"] = time.perf_counter() - t0
+    print(f"standalone models done at {time.perf_counter() - t_start:.0f} s "
+          f"(phase 16: {record['standalone']['phase_s']:.0f} s)")
 
     launches = {name: sum(p[name] for p in paths.values()) for name in SOURCES}
     never = [name for name in SOURCES if launches[name] == 0]
@@ -3184,16 +3786,25 @@ def main() -> None:
     on_export = [f"{path} {name}" for path, names in (
         ("export_rfn", ("convlstm_gates", "coupling_transform", "glowchain")),
         ("export_srnn", ("convlstm_gates",))) for name in names if paths[path][name] == 0]
-    if never or on_bair or on_families or on_eval or on_export:
+    on_standalone = [f"{path} {name}" for path, names in (
+        ("glow_image_train_A", ("actnorm_invconv", "coupling_transform")),
+        ("cglow_train", ("actnorm_invconv", "coupling_transform")),
+        ("glow_image_train_C", ("glowchain",)), ("glow_image_sample", ("glowchain",)),
+        ("cglow_sample", ("glowchain",)),
+        ("rfn_vgg_train", ("actnorm_invconv", "convlstm_gates", "coupling_transform")),
+        ("rfn_vgg_request", ("convlstm_gates", "coupling_transform", "glowchain")))
+        for name in names if paths[path][name] == 0]
+    if never or on_bair or on_families or on_eval or on_export or on_standalone:
         raise AssertionError(f"kernels the main paths never launched: {never}; "
                              f"that rfn_bair never launched: {on_bair}; family paths "
                              f"without the gates: {on_families}; that evaluation never "
                              f"launched: {on_eval}; that the export never launched: "
-                             f"{on_export}")
+                             f"{on_export}; that the standalone models never launched: "
+                             f"{on_standalone}")
     max_err = {name: max(kernels[name]["max_abs_err"], new[name]["max_abs_err"])
                for name in SOURCES}
     max_err["convlstm_gates"] = max(max_err["convlstm_gates"], fam_gates["max_abs_err"])
-    for name, t in cli_checks.items():
+    for name, t in list(cli_checks.items()) + list(standalone_shapes.items()):
         max_err[name] = max(max_err[name], t["max_abs_err"])
     line = {"kernels": [
         dict(name=name, route=route, source=source, replaces=replaces,
@@ -3202,7 +3813,9 @@ def main() -> None:
              **{**kernels[name], "max_abs_err": max_err[name]},
              bair_kth_shapes=new[name],
              **({"srnn_vrnn_shapes": fam_gates["rows"]} if name == "convlstm_gates" else {}),
-             **({"cli_shapes": cli_checks[name]["rows"]} if name in cli_checks else {}))
+             **({"cli_shapes": cli_checks[name]["rows"]} if name in cli_checks else {}),
+             **({"glow_image_shapes": standalone_shapes[name]}
+                if name in standalone_shapes else {}))
         for name, (route, source, replaces) in SOURCES.items()],
         "launch_floor_ms": record["launch_floor_ms"]}
     record.update(line, total_s=time.perf_counter() - t_start)

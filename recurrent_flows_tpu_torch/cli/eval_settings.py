@@ -11,7 +11,7 @@ Loads the checkpoint ``<workdir>/model_folder/<last|best>`` (the port's
 asked), and runs the evaluation protocol: best-of-N metric tracks,
 dataset bits/dim, FVD, the IW-ELBO (SRNN, VRNN, SVG), RFN's
 ``probability_future`` and ELBO-gap diagnostics, and, with
-``--debug_plot``, the figures (matplotlib). Writes
+``--debug_plot``, the figures (numpy, no matplotlib). Writes
 ``<workdir>/eval/evaluations.json`` (the JAX CLI's keys and ``_meta``) and
 appends to ``eval_avg_losses.txt``.
 

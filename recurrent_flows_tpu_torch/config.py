@@ -6,9 +6,9 @@ written for one package reads the same in the other
 
 ``check_supported`` refuses, at construction, every configuration the port
 cannot run as the JAX package would, for each family (RFN, SRNN, VRNN,
-SVG): TPU-only knobs and values the JAX package rejects raise
-``ValueError``, paths not ported yet (the VGG ops 'deconv' and 'squeeze')
-raise ``NotImplementedError`` naming their ROADMAP item.
+SVG) and for the ``GlowConfig`` of the standalone Glow models
+(``models.glow_image``): TPU-only knobs and values the JAX package
+rejects raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -365,14 +365,25 @@ def check_glow_supported(g: GlowConfig) -> None:
         raise ValueError(f"unknown split2d_act {g.split2d_act!r}")
 
 
+EXTRACTOR_OPS = ("pool", "conv", "squeeze")  # besides an int: a 3x3 conv
+UPSCALER_OPS = ("upsample", "deconv", "squeeze")
+
+
 def _check_rfn(cfg: RFNConfig) -> None:
+    """The flow, and the VGG structures as the JAX modules build them: an
+    extractor block holds ints and ``EXTRACTOR_OPS``, an upscaler block
+    ints and ``UPSCALER_OPS``, exactly one of them in every block after the
+    first (the first block's are ignored, as in JAX)."""
     check_glow_supported(cfg.glow)
-    for block in cfg.extractor_structure + cfg.upscaler_structure:
+    for block in cfg.extractor_structure:
         for op in block:
-            if op in ("deconv", "squeeze"):
-                raise NotImplementedError(
-                    f"VGG op {op!r} is not ported yet; no preset uses it "
-                    "(ROADMAP.md queue 1, item 5b)")
+            if not isinstance(op, int) and op not in EXTRACTOR_OPS:
+                raise ValueError(f"extractor op {op!r}: an int or one of {EXTRACTOR_OPS}")
+    for l, block in enumerate(cfg.upscaler_structure):
+        ups = [op for op in block if not isinstance(op, int)]
+        if any(op not in UPSCALER_OPS for op in ups) or (l > 0 and len(ups) != 1):
+            raise ValueError(f"upscaler block {l} {block!r}: ints and, after the first "
+                             f"block, exactly one of {UPSCALER_OPS}")
 
 
 NORM_TYPES = ("batchnorm", "instancenorm", "none")
@@ -403,13 +414,14 @@ def _check_svg(cfg: SVGConfig) -> None:
 
 
 _CHECKS = {RFNConfig: _check_rfn, SRNNConfig: _check_dense_latent,
-           VRNNConfig: _check_dense_latent, SVGConfig: _check_svg}
+           VRNNConfig: _check_dense_latent, SVGConfig: _check_svg,
+           GlowConfig: check_glow_supported}
 
 
 def check_supported(cfg) -> None:
     """Raise on a config the port does not run (see module docstring)."""
     check = _CHECKS.get(type(cfg))
     if check is None:
-        raise NotImplementedError(f"{type(cfg).__name__}: the port has the families "
-                                  "RFN, SRNN, VRNN and SVG (ROADMAP.md queue 1, item 5b)")
+        raise ValueError(f"{type(cfg).__name__}: the port's configs are RFNConfig, "
+                         "SRNNConfig, VRNNConfig, SVGConfig and GlowConfig")
     check(cfg)

@@ -11,8 +11,11 @@ diagnostics, and the qualitative figures.
 * ``importance_weighted_elbo``, ``probability_future_bpp``, ``elbo_gap``;
 * ``compare_bpp``: bits/dim of several models on one batch;
 * ``plot_temperatures`` / ``plot_diversity`` / ``plot_long_rollout`` /
-  ``plot_random_samples`` / ``get_interpolations`` / ``param_plots``: the
-  figures (matplotlib is imported only where a ``path`` asks for one).
+  ``plot_random_samples`` / ``get_interpolations`` / ``param_plots`` and
+  ``plot_eval_curves``: the figures, drawn in numpy (``training.plots``)
+  and written by ``data.png.write_png`` where a ``path`` asks for one, so
+  they need no matplotlib. A strip is the frames of one row, up to 20
+  (``plots.frame_grid``: [H', n·(W+1) - 1], RGB for RGB frames).
 
 The model, the metrics and the embedders run on ``device``. Each
 resample is its own ``predict`` call: a model with batch norms normalises
@@ -36,6 +39,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..data.png import write_png
+from ..training.plots import boxed_grid, frame_grid, line_panel
 from ..utils.numerics import NoiseSource
 from .fvd import fvd
 from .lpips import lpips_distance
@@ -117,7 +122,8 @@ class Evaluator:
         """Best-of-N and mean per-frame tracks [N_seq, n_predictions] of
         SSIM, PSNR, MSE (and LPIPS), with a summary (mean, 95% CI, n) of
         the best tracks, plus bits/dim. With ``save_grids_dir`` the best and
-        the worst rollout by SSIM are saved as frame strips."""
+        the worst rollout by SSIM are saved as frame strips, ``best.png``
+        and ``worst.png``."""
         s = self.s
         names = METRICS if with_lpips else METRICS[:3]
         best = {m: [] for m in names}
@@ -258,7 +264,8 @@ class Evaluator:
 
     # ------------------------------------------------------------------
     def plot_long_rollout(self, n_frames: int = 80, path: Optional[str] = None):
-        """A long rollout of the first sequence: [n_frames, H, W, C]."""
+        """A long rollout of the first sequence: [n_frames, H, W, C]; ``path``
+        gets its strip."""
         x = self._sample(self.s.batch_size)
         grid = self.post(self._predict(x, n_frames, self._draws("long_rollout")))[0]
         grid = grid.cpu().numpy()
@@ -316,7 +323,10 @@ class Evaluator:
         """Prior, posterior and base-distribution parameter trajectories on
         synchronized data (``sync_data.sample(generator, batch_size)`` ->
         (x, hit_boundary)), with the bounces marked. Returns the
-        trajectories."""
+        trajectories; ``path`` gets two 120x300 panels one above the other
+        ([240, 300, 3]): the means (mu_p, mu_q, mu_flow) and the standard
+        deviations, each in the palette's first three colours, a grey line
+        at every bounce."""
         if not hasattr(type(self.model), "param_analysis"):
             raise NotImplementedError("model has no param_analysis")
         x, hits = sync_data.sample(self.generator, self.s.batch_size)
@@ -326,51 +336,25 @@ class Evaluator:
                 for k, v in out.items() if k != "predictions"}
         traj["hit_boundary"] = np.asarray(torch.as_tensor(hits).cpu())[0]
         if path:
-            plt = _pyplot()
-            fig, ax = plt.subplots(2, 1, figsize=(8, 6), sharex=True)
-            for name in ("mu_p", "mu_q", "mu_flow"):
-                ax[0].plot(traj[name], label=name)
-            for name in ("std_p", "std_q", "std_flow"):
-                ax[1].plot(traj[name], label=name)
-            for a in ax:
-                for t, hit in enumerate(traj["hit_boundary"][1:]):
-                    if hit:
-                        a.axvline(t, color="gray", alpha=0.4)
-                a.legend()
-                a.grid()
-            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-            fig.savefig(path, bbox_inches="tight")
-            plt.close(fig)
+            marks = [t for t, hit in enumerate(traj["hit_boundary"][1:]) if hit]
+            _write(path, np.concatenate([
+                line_panel([traj[n] for n in names], height=120, width=300, marks=marks)
+                for names in (("mu_p", "mu_q", "mu_flow"), ("std_p", "std_q", "std_flow"))]))
         return traj
 
     def plot_random_samples(self, n_sequences: int = 5, n_show: int = 7,
                             path: Optional[str] = None):
         """Grid of rollouts, sequences by rows, time by columns, the context
-        boxed red and the predictions green: [n_sequences, n_show, H, W, C]."""
+        boxed red and the predictions green: [n_sequences, n_show, H, W, C].
+        ``path`` gets the RGB grid of ``plots.boxed_grid`` (2-pixel frames):
+        [n_sequences·(H+5) - 1, n_show·(W+5) - 1, 3]."""
         s = self.s
         x = self._sample(max(s.batch_size, n_sequences))
         preds = self.post(self._predict(x, s.n_predictions, self._draws("random_samples")))
         seq = torch.cat([self.post(x[:, : s.n_conditions]), preds], 1).cpu().numpy()
         n_show = min(n_show, seq.shape[1])
         if path:
-            plt = _pyplot()
-            fig, ax = plt.subplots(n_sequences, n_show, figsize=(n_show, n_sequences),
-                                   gridspec_kw=dict(wspace=0.06, hspace=0))
-            for k in range(n_sequences):
-                for i in range(n_show):
-                    a = ax[k, i] if n_sequences > 1 else ax[i]
-                    frame = seq[k, i]
-                    a.imshow(frame.squeeze(-1) if frame.shape[-1] == 1 else frame,
-                             cmap="gray" if frame.shape[-1] == 1 else None)
-                    for spine in a.spines.values():
-                        spine.set_edgecolor("red" if i < s.n_conditions else "green")
-                        spine.set_linewidth(3)
-                    a.set_xticks([])
-                    a.set_yticks([])
-                    if k == 0:
-                        a.set_title(f"$t={i + 1}$", fontsize=13)
-            fig.savefig(path, bbox_inches="tight")
-            plt.close(fig)
+            _write(path, boxed_grid(seq[:n_sequences, :n_show], s.n_conditions))
         return seq[:n_sequences, :n_show]
 
     def plot_diversity(self, n_samples: int = 5, path: Optional[str] = None):
@@ -388,31 +372,24 @@ class Evaluator:
 def plot_eval_curves(results: dict, path: str, metrics=METRICS):
     """Per-frame metric curves with mean ± 2 standard errors, one panel per
     metric, one line per experiment. ``results``: {experiment_name:
-    get_eval_values() dict}."""
-    plt = _pyplot()
+    get_eval_values() dict}. ``path`` gets one 120x200 ``plots.line_panel``
+    per metric that some experiment has, side by side ([120, 200·n, 3]),
+    each experiment's band shaded under its line; no text."""
     avail = [m for m in metrics if any(f"{m}_best" in r for r in results.values())]
-    fig, axes = plt.subplots(1, len(avail), figsize=(4 * len(avail), 3.2))
-    if len(avail) == 1:
-        axes = [axes]
-    for ax, m in zip(axes, avail):
-        for name, r in results.items():
+    panels = []
+    for m in avail:
+        series, bands = [], []
+        for r in results.values():
             track = r.get(f"{m}_best")
             if track is None:
                 continue
             track = np.asarray(track)
             mean = track.mean(0)
             std = track.std(0) / max(np.sqrt(track.shape[0]), 1.0)
-            t = np.arange(len(mean))
-            ax.plot(t, mean, label=name)
-            ax.fill_between(t, mean - 2 * std, mean + 2 * std, alpha=0.2)
-        ax.set_title(f"{m} (best-of-N)")
-        ax.set_xlabel("prediction step")
-        ax.grid(alpha=0.3)
-        ax.legend(fontsize=7)
-    fig.tight_layout()
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    fig.savefig(path, bbox_inches="tight")
-    plt.close(fig)
+            series.append(mean)
+            bands.append((mean - 2 * std, mean + 2 * std))
+        panels.append(line_panel(series, bands=bands))
+    _write(path, np.concatenate(panels, 1))
 
 
 def compare_bpp(models: dict, x, seed: int = 0, noise=None) -> Dict[str, float]:
@@ -428,22 +405,11 @@ def compare_bpp(models: dict, x, seed: int = 0, noise=None) -> Dict[str, float]:
     return out
 
 
-def _pyplot():
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    return plt
+def _write(path, image):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    write_png(path, image)
 
 
 def _save_strip(frames, path):
-    plt = _pyplot()
-    n = min(len(frames), 20)
-    fig, ax = plt.subplots(1, n, figsize=(1.2 * n, 1.5))
-    for i in range(n):
-        ax[i].imshow(np.asarray(frames[i]).squeeze(), cmap="gray")
-        ax[i].axis("off")
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    fig.savefig(path, bbox_inches="tight")
-    plt.close(fig)
+    """frames [N, H, W, C] as one row of tiles, up to 20."""
+    _write(path, frame_grid([("strip", np.asarray(frames)[:, None])], max_frames=20))

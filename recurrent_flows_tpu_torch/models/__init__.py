@@ -1,9 +1,12 @@
+from .glow_image import ConditionalGlowImage, GlowImage
 from .rfn import RFN
 from .srnn import SRNN
 from .svg import SVG
 from .vrnn import VRNN
+from .vrnn1d import VRNN1D
 
-__all__ = ["RFN", "SRNN", "SVG", "VRNN", "split_reconstruction"]
+__all__ = ["ConditionalGlowImage", "GlowImage", "RFN", "SRNN", "SVG", "VRNN", "VRNN1D",
+           "split_reconstruction"]
 
 
 def split_reconstruction(out) -> tuple:

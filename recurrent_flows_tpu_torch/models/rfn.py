@@ -114,8 +114,7 @@ class RFN(nn.Module):
                                       norm_type=cfg.norm_type, non_lin="leakyrelu",
                                       track_running_stats=cfg.track_running_stats, **kw)
         # upscaler outputs, high-res first, then the skip-mode combination
-        up_ch = [[i for i in b if isinstance(i, int)][-1]
-                 for b in cfg.upscaler_structure][::-1]
+        up_ch = self.upscaler.out_channels
         mode = cfg.skip_connection_flow
         cond_ch = [skip_ch[l] if mode == "only_skip" else
                    up_ch[l] + (skip_ch[l] if mode == "with_skip" else 0)

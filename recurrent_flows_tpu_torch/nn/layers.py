@@ -98,12 +98,14 @@ class ConvTranspose2d(nn.Module):
     ``convert.from_flax`` flips H and W as it maps HWIO -> IOHW. flax's
     'SAME' at k=4, s=2 pads the dilated input by (2, 2), which is torch's
     ``padding=1`` (both give 2n); its 'VALID' pads it by k-1, torch's
-    ``padding=0``. Init: kernel ~ N(0, 1/(k²·I)), bias zero.
+    ``padding=0``. Init: kernel ~ N(0, 1/(k²·I)), bias zero. ``use_bias``
+    as flax's ``nn.ConvTranspose`` (default True); the VGG upscaler's
+    'deconv' passes False, as JAX's ``deconv2d`` defaults to.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 4,
-                 stride: int = 2, padding: str = "SAME", *, device=None,
-                 generator=None):
+                 stride: int = 2, padding: str = "SAME", use_bias: bool = True,
+                 *, device=None, generator=None):
         super().__init__()
         if padding == "SAME" and (kernel, stride) != (4, 2):
             raise ValueError("ConvTranspose2d: 'SAME' is ported for k=4, s=2 only")
@@ -114,7 +116,8 @@ class ConvTranspose2d(nn.Module):
         self.kernel = nn.Parameter(normal_(
             (in_channels, out_channels, kernel, kernel),
             1.0 / math.sqrt(in_channels * kernel * kernel), generator, device))
-        self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_channels, device=device)) if use_bias
+                     else None)
 
     def forward(self, x):
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.kernel, self.bias,

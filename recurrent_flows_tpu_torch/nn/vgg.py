@@ -2,8 +2,12 @@
 (NHWC), the counterparts of ``recurrent_flows_tpu.nn.vgg``.
 
 Ops: int = 3x3 conv (no bias) + norm + activation, 'pool' = maxpool/2,
-'conv' = strided conv x ``scale`` channels, 'upsample' = nearest 2x.
-'deconv' and 'squeeze' raise ``NotImplementedError``: no preset uses them.
+'conv' = strided conv x ``scale`` channels, 'squeeze' = space-to-depth
+(h/2, 4·c) + norm + activation. The upscaler's up-ops (one per block after
+the first): 'upsample' = nearest 2x, 'deconv' = a bias-free transposed
+conv k4 s2 to c/``scale`` channels + norm + activation, 'squeeze' =
+depth-to-space (2h, c/4) + norm + activation; the up-op's norm is
+``b{l}_up_norm``, its transposed conv ``b{l}_up``.
 """
 
 from __future__ import annotations
@@ -13,12 +17,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .layers import Conv2d, NormLayer, act, max_pool_nhwc
-
-
-def _unported(op):
-    raise NotImplementedError(f"VGG op {op!r} is not ported yet "
-                              "(ROADMAP.md queue 1, item 5b)")
+from ..config import UPSCALER_OPS
+from ..utils.numerics import squeeze2d, unsqueeze2d
+from .layers import Conv2d, ConvTranspose2d, NormLayer, act, max_pool_nhwc
 
 
 def _upsample_nearest2x(x):
@@ -37,8 +38,9 @@ def downscaler_layer_sizes(structures, in_channels: int, image_size: int,
             elif i == "conv":
                 h //= 2
                 c = int(c * scale)
-            elif i in ("squeeze", "deconv"):
-                _unported(i)
+            elif i == "squeeze":
+                h //= 2
+                c *= 4
             else:
                 c = int(i)
         out.append((h, h, c))
@@ -63,8 +65,11 @@ class VGGDownscaler(nn.Module):
                 name = f"b{l}_{count}"
                 if i == "pool":
                     continue
-                if i in ("squeeze", "deconv"):
-                    _unported(i)
+                if i == "squeeze":
+                    c *= 4
+                    self.add_module(name + "_norm", NormLayer(
+                        norm_type, c, track_running_stats, device=device))
+                    continue
                 out, stride = (int(c * scale), 2) if i == "conv" else (int(i), 1)
                 self.add_module(name, Conv2d(c, out, 3, stride, use_bias=False,
                                              device=device, generator=generator))
@@ -86,11 +91,11 @@ class VGGDownscaler(nn.Module):
             for count, i in enumerate(structure, start=1):
                 if i == "pool":
                     x = max_pool_nhwc(x)
-                else:
-                    name = f"b{l}_{count}"
-                    x = getattr(self, name + "_norm")(getattr(self, name)(x),
-                                                      use_running_average)
-                    x = self._activation(l, count, n, x)
+                    continue
+                name = f"b{l}_{count}"
+                x = squeeze2d(x) if i == "squeeze" else getattr(self, name)(x)
+                x = getattr(self, name + "_norm")(x, use_running_average)
+                x = self._activation(l, count, n, x)
             if self.skip_con:
                 outputs.append(x)
         return outputs if self.skip_con else x
@@ -98,7 +103,8 @@ class VGGDownscaler(nn.Module):
 
 class VGGUpscaler(nn.Module):
     """Condition generator: L blocks low-res -> high-res with optional
-    per-scale skip concatenation; returns its outputs high-res first."""
+    per-scale skip concatenation; returns its outputs high-res first, of
+    ``out_channels`` channels (high-res first)."""
 
     def __init__(self, structures: Sequence[Sequence], in_channels: int,
                  skip_channels: Sequence[int] | None = None,
@@ -114,12 +120,21 @@ class VGGUpscaler(nn.Module):
         self.skips = skip_channels is not None
         rev = list(skip_channels)[::-1] if self.skips else None
         c = in_channels
+        self.up_ops, out_channels = [None], []
         for l, structure in enumerate(self.structures):
-            up_ops = [i for i in structure if i in ("upsample", "deconv", "squeeze")]
+            up_ops = [i for i in structure if i in UPSCALER_OPS]
             if l > 0 and len(up_ops) != 1:
                 raise ValueError("each block after the first needs one up-op")
-            if l > 0 and up_ops[0] != "upsample":
-                _unported(up_ops[0])
+            if l > 0:
+                self.up_ops.append(up_ops[0])
+                if up_ops[0] != "upsample":
+                    if up_ops[0] == "deconv":
+                        self.add_module(f"b{l}_up", ConvTranspose2d(
+                            c, c // scale, use_bias=False, device=device,
+                            generator=generator))
+                    c = c // scale if up_ops[0] == "deconv" else c // 4
+                    self.add_module(f"b{l}_up_norm", NormLayer(
+                        norm_type, c, track_running_stats, device=device))
             if self.skips:
                 c += rev[l]
             for count, ch in enumerate((i for i in structure if isinstance(i, int)),
@@ -130,13 +145,22 @@ class VGGUpscaler(nn.Module):
                 self.add_module(name + "_norm", NormLayer(
                     norm_type, ch, track_running_stats, device=device))
                 c = ch
+            out_channels.append(c)
+        self.out_channels = out_channels[::-1]
+
+    def _up(self, l, x, use_running_average):
+        op = self.up_ops[l]
+        if op == "upsample":
+            return _upsample_nearest2x(x)
+        x = getattr(self, f"b{l}_up")(x) if op == "deconv" else unsqueeze2d(x)
+        return act(getattr(self, f"b{l}_up_norm")(x, use_running_average), self.non_lin)
 
     def forward(self, x, skip_list=None, use_running_average: bool = False):
         outputs = []
         rev_skips = list(skip_list)[::-1] if self.skips else None
         for l, structure in enumerate(self.structures):
             if l > 0:
-                x = _upsample_nearest2x(x)
+                x = self._up(l, x, use_running_average)
             if self.skips:
                 x = torch.cat([x, rev_skips[l]], -1)
             convs = [i for i in structure if isinstance(i, int)]

@@ -105,9 +105,11 @@ def load_model_from_checkpoint(ckpt_dir: str, temperature: float | None = None,
     meta = read_meta(ckpt_dir)
     name = meta["model_class"]
     if name not in FAMILIES:
-        raise NotImplementedError(
-            f"model_class {name!r}: the port has {', '.join(FAMILIES)}; the "
-            "others are ROADMAP.md queue 1, item 5b")
+        # as the JAX registry (cli/eval_settings.py): a GlowImage's meta holds
+        # its GlowConfig but not its constructor's other arguments
+        raise ValueError(
+            f"model_class {name!r}: checkpoints rebuild {', '.join(FAMILIES)}; build "
+            "any other model yourself and load it with load_state")
     cfg = config_from_dict(getattr(_config, f"{name}Config"), meta["model_config"])
     if temperature is not None and hasattr(cfg, "temperature"):
         cfg = dataclasses.replace(cfg, temperature=temperature)

@@ -13,7 +13,8 @@ and ``refresh_stats`` (running statistics from a fresh batch).
 
 Every family of ``models`` (RFN, SRNN, VRNN, SVG) takes the same calls;
 with a preset: ``mcfg, tcfg = srnn_mnist()``, then ``SRNN(mcfg,
-device="cuda")`` in place of the RFN.
+device="cuda")`` in place of the RFN. So does ``models.GlowImage`` (frames
+taken as i.i.d. images; its plots are ``losses.png`` alone).
 
 ``data`` is either a generator with ``.sample(generator, batch_size)``
 (the batch is made on the device, by the trainer's ``torch.Generator``) or
@@ -450,13 +451,18 @@ class Trainer:
         """``png_folder/losses.png`` (the four histories: bits per dim, loss,
         KL, NLL, as polylines) and ``samples<n>.png`` (the rows of
         ``plot_rows``, first sequence, up to 10 frames), drawn in numpy
-        (``training.plots``) and written by ``data.png.write_png``."""
+        (``training.plots``) and written by ``data.png.write_png``. A model
+        without ``predict`` (``GlowImage``) gets ``losses.png`` alone and
+        leaves ``plot_counter`` as it is, as the JAX ``plotter`` does."""
         from ..data.png import write_png
         from .plots import frame_grid, loss_panel
 
-        rows = self.plot_rows()
+        predicts = hasattr(type(self.model), "predict")
+        rows = self.plot_rows() if predicts else None
         png = self._folder("png_folder")
         write_png(os.path.join(png, "losses.png"), loss_panel(
             [self.bits_hist, self.losses, self.kl_hist, self.recon_hist]))
+        if not predicts:
+            return
         write_png(os.path.join(png, f"samples{self.plot_counter}.png"), frame_grid(rows))
         self.plot_counter += 1

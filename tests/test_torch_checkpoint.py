@@ -149,8 +149,9 @@ def test_jax_checkpoint_served_and_resumed_by_the_port(tmp_path, grad_clip):
 
 
 def test_checkpoint_of_another_model_family_raises(tmp_path):
-    # SRNN, VRNN and SVG are ported (test_torch_family_lifecycle.py); the
-    # JAX package's GlowImage is not
+    # SRNN, VRNN and SVG are served (test_torch_family_lifecycle.py); a
+    # GlowImage is not, as in the JAX registry (its meta lacks the
+    # constructor's arguments; test_torch_glow_image.py loads one by hand)
     (tmp_path / "meta.json").write_text(json.dumps({"model_class": "GlowImage"}))
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(ValueError, match="load_state"):
         Predictor.from_checkpoint(str(tmp_path), device="cpu")

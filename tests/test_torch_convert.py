@@ -155,11 +155,13 @@ def _glow(**kw):
     (_glow(flow_norm="none"), ValueError),
     (_glow(base_norm="groupnorm"), ValueError),
     (_glow(coupling_norm="instancenorm"), ValueError),
+    # the VGG ops run (test_torch_vgg_ops.py); what neither package builds
+    # raises: an up-op in the extractor, two up-ops in one upscaler block
     (dataclasses.replace(rfn_mnist_production()[0],
-                         extractor_structure=((16, "squeeze"),) * 5), NotImplementedError),
+                         extractor_structure=((16, "deconv"),) * 5), ValueError),
     (dataclasses.replace(rfn_mnist_production()[0],
-                         upscaler_structure=((256,),) + (("deconv", 16),) * 4),
-     NotImplementedError),
+                         upscaler_structure=((256,),) + (("deconv", "squeeze", 16),) * 4),
+     ValueError),
 ], ids=["packed_layout", "dual_stream", "coupling_dtype", "fold_weights",
         "im2col", "bad_chain_impl", "bad_clamp", "bad_flow_norm", "bad_base_norm",
         "bad_coupling_norm", "squeeze", "deconv"])
@@ -185,10 +187,14 @@ def test_the_slice_config_is_supported():
                 pconfig.rfn_kth()[0], pconfig.rfn_bair()[0]):
         check_supported(cfg)
         RFN(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(dataclasses.replace(
-            rfn_mnist_production()[0],
-            extractor_structure=((16, "squeeze"),) * 5))
+    # the VGG ops 'squeeze' (extractor and upscaler) and 'deconv'
+    prod = rfn_mnist_production()[0]
+    vgg = dataclasses.replace(
+        prod, extractor_structure=((32, "squeeze", 32),) + prod.extractor_structure[1:],
+        upscaler_structure=(((256, 128), ("deconv", 128, 128), ("squeeze", 64))
+                            + prod.upscaler_structure[3:]))
+    check_supported(vgg)
+    RFN(vgg, device="meta")
 
 
 @pytest.mark.parametrize("name", ["rfn_mnist_production", "rfn_kth", "rfn_bair",
@@ -216,7 +222,7 @@ def test_family_configs_the_port_cannot_run_raise_at_construction(cfg):
 
 
 def test_check_supported_refuses_a_config_of_no_ported_family():
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(ValueError, match="GlowConfig"):
         check_supported(pconfig.TrainConfig())
 
 

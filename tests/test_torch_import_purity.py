@@ -1,8 +1,9 @@
 """Importing the port pulls in neither JAX nor Triton, initialises no CUDA
 context and builds nothing; nor does building the eval CLI's parser. The
 data package, the training CLIs, the training and serving packages, the
-export CLI and ``cli.build_framecache`` import no matplotlib either: the
-card's machine has none."""
+export CLI, ``cli.build_framecache`` and the evaluation package (its
+figures are numpy) import no matplotlib (nor Pillow) either: the card's
+machine has none."""
 
 import os
 import re
@@ -49,7 +50,9 @@ def test_importing_every_module_keeps_jax_triton_and_cuda_out(tmp_path):
                 "cli.main_svg", "data.shapes", "data.kth", "data.bair", "data.png",
                 "parallel.distributed", "parallel.data_parallel", "ops.library",
                 "data._native", "training.plots", "cli.export_serving",
-                "cli.build_framecache"):
+                "cli.build_framecache", "models.glow_image", "models.vrnn1d",
+                "flows.realnvp2d", "data.sinusoids", "data.halfmoon", "data.celeba",
+                "data.prepare_kth"):
         assert f"recurrent_flows_tpu_torch.{mod}" in names.split(), mod
     assert (sorted(build.iterdir()) if build.exists() else None) == before
 
@@ -57,6 +60,9 @@ def test_importing_every_module_keeps_jax_triton_and_cuda_out(tmp_path):
 _TRAINING_PATH = """
 import sys
 import recurrent_flows_tpu_torch.data
+import recurrent_flows_tpu_torch.data.prepare_kth
+import recurrent_flows_tpu_torch.evaluation
+import recurrent_flows_tpu_torch.models
 import recurrent_flows_tpu_torch.serving
 import recurrent_flows_tpu_torch.training
 from recurrent_flows_tpu_torch.cli import (build_framecache, export_serving, main_rfn,

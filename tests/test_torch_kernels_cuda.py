@@ -104,6 +104,15 @@ def test_coupling_kernel_at_production_shapes(cuda, b, hw, ch, layout):
     _coupling_agrees(cuda, b, hw, ch, layout)
 
 
+# z2 of the standalone models: GlowImage's three scales at 96 frames,
+# cGlow's two at B=16
+@pytest.mark.parametrize("layout", ["split/cross", "contiguous"])
+@pytest.mark.parametrize("b,hw,ch", [(96, 32, 2), (96, 16, 4), (96, 8, 8), (16, 16, 6),
+                                     (16, 8, 12)])
+def test_coupling_kernel_at_the_standalone_models_shapes(cuda, b, hw, ch, layout):
+    _coupling_agrees(cuda, b, hw, ch, layout)
+
+
 @pytest.mark.parametrize("b", [1, 7, 33])
 @pytest.mark.parametrize("hw,ch", [(32, 2), (8, 8)])
 def test_coupling_kernel_at_ragged_batches(cuda, b, hw, ch):
@@ -323,6 +332,16 @@ def test_glow_kernels_at_kth_and_bair_shapes(cuda, hw, c, cc, b):
     _step_and_chain_agree(cuda, b, hw, hw, c, cc, 256, k=10)
 
 
+# the standalone models: GlowImage (64x64 gray, L=3, U=128, cond 8; B=16
+# sampled, 96 frames trained) at scales 1-2, cGlow (32x32 RGB, L=2, U=256,
+# cond 32, B=16) at both scales
+@pytest.mark.parametrize("b,hw,c,cc,u,k", [
+    (16, 16, 8, 8, 128, 8), (96, 16, 8, 8, 128, 8), (16, 8, 16, 8, 128, 8),
+    (96, 8, 16, 8, 128, 8), (16, 16, 12, 32, 256, 4), (16, 8, 24, 32, 256, 4)])
+def test_glow_kernels_at_the_standalone_models_shapes(cuda, b, hw, c, cc, u, k):
+    _step_and_chain_agree(cuda, b, hw, hw, c, cc, u, k=k)
+
+
 @pytest.mark.parametrize("fixed", [dict(cluster_blocks=16), dict(ha_global=False),
                                    dict(ha_global=True, stages=2), dict(im=2),
                                    dict(batch_tile=2, cluster_blocks=4)])
@@ -401,6 +420,14 @@ def test_actnorm_invconv_kernel_at_rgb_widths(cuda, rows, c, offset):
                                     (30 * 16, 32), (30 * 4, 64), (33 * 16, 32),
                                     (7 * 4, 64), (1, 4), (131, 16)])
 def test_actnorm_invconv_kernel_at_production_and_ragged_shapes(cuda, rows, c):
+    _ainv_agrees(cuda, rows, c)
+
+
+# x [B·H·W, C] of the standalone models' module-path steps: GlowImage's
+# three scales at 96 frames, cGlow's two at B=16
+@pytest.mark.parametrize("rows,c", [(96 * 1024, 4), (96 * 256, 8), (96 * 64, 16),
+                                    (16 * 256, 12), (16 * 64, 24)])
+def test_actnorm_invconv_kernel_at_the_standalone_models_shapes(cuda, rows, c):
     _ainv_agrees(cuda, rows, c)
 
 

@@ -151,7 +151,10 @@ def test_vgg_downscaler_and_upscaler_match_jax(vgg_vars, tanh):
 
 
 def test_vgg_unported_ops_raise():
-    with pytest.raises(NotImplementedError, match="squeeze"):
-        tvgg.VGGDownscaler(((4, "squeeze"),), 1)
-    with pytest.raises(NotImplementedError, match="deconv"):
-        tvgg.VGGUpscaler(((8,), ("deconv", 4)), 6)
+    # 'squeeze' and 'deconv' are ported (test_torch_vgg_ops.py); an up-op in
+    # the extractor and two up-ops in one upscaler block have no meaning in
+    # either package
+    with pytest.raises(ValueError):
+        tvgg.VGGDownscaler(((4, "deconv"),), 1)
+    with pytest.raises(ValueError, match="one up-op"):
+        tvgg.VGGUpscaler(((8,), ("deconv", "squeeze", 4)), 6)

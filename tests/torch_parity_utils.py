@@ -304,3 +304,18 @@ def rfn_elbo_gap_noise(key, cfg: RFNConfig, batch: int, t: int, sample: bool = T
             if sample:
                 eps += _flow(k2, cfg, batch, base=False) + _flow(k3, cfg, batch)
     return eps
+
+
+def assert_grads_close(model: torch.nn.Module, jax_grads, tol: float = 1e-4):
+    """Every parameter's ``.grad`` within tol of the largest |entry| of the
+    JAX gradient of the same tensor (converted by ``tree_from_flax``)."""
+    from recurrent_flows_tpu_torch.convert import tree_from_flax
+
+    want = tree_from_flax(jax_grads, model)
+    floor = 1e-7 * max(w.abs().max().item() for w in want.values())
+    for name, p in model.named_parameters():
+        ref = want[name].double().numpy()
+        got = np.zeros_like(ref) if p.grad is None else p.grad.double().numpy()
+        err = np.abs(got - ref).max()
+        assert err <= max(tol * np.abs(ref).max(), floor), (name, float(err),
+                                                              float(np.abs(ref).max()))
