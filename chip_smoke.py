@@ -147,7 +147,22 @@ configurations: A the preset as it is, B ``coupling_impl='fused'``, C
     ``AutoregFlow2D``; ``rfn_mnist_production`` with the VGG ops 'squeeze'
     and 'deconv' (build, a step of A, a request, exact launches); and
     ``scripts/torch_validate_training.py --model glow --image_size 64`` for
-    40 steps (its verdict recorded, ``improved`` not asserted).
+    40 steps (its verdict recorded, ``improved`` not asserted);
+17. the spatial grid: the three pointwise kernels at the local shapes a
+    rank of a 1x2 (data x model) grid gives them; the one-process steps A,
+    B and C of ``rfn_mnist_production`` (B=30, T=10, a warm-up and a timed
+    step, each from the same state with a fresh Adam and the noise of a
+    fixed seed) and one ``srnn_mnist`` step; then two processes
+    (``python3 chip_smoke.py --grid-rank R 2 PORT``) share the card over
+    gloo on the grid (``parallel.make_mesh``, each rank 32 of the 64 rows)
+    and take the same steps (no recomputation in either): exact halo,
+    gather and launch counts per rank and step, every parameter,
+    gradient and module output on the card,
+    loss, kl and nll within 1e-5 of the one-process step's, gradients and
+    updated parameters within the bar stated at ``GRID_T_FLOOR``; the ms
+    per step sharded and in one process and the host ms in exchanges;
+    then ``examples/torch_two_moons.py`` for 400 steps on the card (each
+    flow's loss falls, every figure decodes).
 
 Any failure raises and the script exits non-zero. The last two lines of
 standard output are the kernels' JSON record (with each kernel's launches
@@ -3675,6 +3690,420 @@ SOURCES = {
 }
 
 
+# --- phase 17: the spatial grid ------------------------------------------------
+# Two processes share the card over gloo on a 1x2 (data x model) grid
+# (``parallel.make_mesh``), each holding half the rows of every frame:
+# rfn_mnist_production's steps A, B and C at B=30, T=10 against the
+# one-process step from the same weights and draws, both without
+# recomputation (it would repeat a third of the exchanges, each 2-4 ms on
+# a shared card; tests/test_torch_mesh.py runs the grid with it), with exact halo,
+# gather and launch counts per rank, then one srnn_mnist step. The bar:
+# loss, kl and nll within 1e-5 relative (tests/test_torch_mesh.py's);
+# each gradient element within rtol 5e-5 plus its tensor's noise floor,
+# and each updated parameter within rtol 5e-5, atol 1e-6 where its
+# gradient is above that floor (below it, rounding noise held by the
+# gradient, as tests/test_torch_distributed.py holds its G_FLOOR). The
+# floor is GRID_T_FLOOR of the tensor's largest gradient entry, and never
+# below GRID_G_FLOOR of the model's largest (the CPU tests' G_FLOOR: conv
+# biases in front of a batch norm have gradients that are zero in exact
+# arithmetic). On the card the sharded step runs every conv at other
+# shapes, so cuDNN picks other forward algorithms, and the float32
+# difference grows through the ill-conditioned backward as it does across
+# devices: phase 6 holds the card against the CPU at 3e-2 of a stream
+# tensor's largest entry (TOL_STEP_GRAD_STREAM). Measured by this phase on
+# an NVIDIA H100 80GB HBM3 at 700 W: up to 2.98e-2 of a tensor's largest
+# entry (extractor.b4_1.kernel, step B) and 1.2e-3 of the model's; so the
+# floor is 5e-2.
+GRID_DIR = ROOT / "runs" / "chip_smoke_grid"
+GRID_SEEDS = (170, 171)  # the warm-up step's noise, the timed step's
+GRID_G_FLOOR, GRID_T_FLOOR = 1e-5, 5e-2
+GRID_RTOL_METRICS, GRID_RTOL, GRID_ATOL = 1e-5, 5e-5, 1e-6
+
+
+def grid_exchanges(mcfg, config: str, frames: int, kernel_scales, remat: bool = True) -> dict:
+    """Halo exchanges and row gathers of one rank's RFN train step over
+    ``frames`` + 1 frames on a 1x2 grid where every map keeps at least one
+    row per rank (rfn_mnist_production: 64x64 down to its 2x2 latent).
+    Every 3x3 conv exchanges halo rows: the extractor's (once over all
+    frames), the h-LSTM's gate conv per frame, and per frame the prior's and
+    encoder's convs and parameter conv, the upscaler's convs and the flow's
+    (per module-path GlowStep the coupling's two 3x3; per split two; the base
+    prior's three); a kernel scale runs none but gathers its rows: per
+    GlowStep x and the condition (B), per scale (C). With recomputation the
+    per-frame steps run their forward twice. The backward exchanges once per
+    forward exchange of a tensor that needs a gradient: not the frames' own
+    (the extractor's first conv, and the gathered z of a kernel scale 0)."""
+    ext = sum(1 for block in mcfg.extractor_structure for op in block if op != "pool")
+    up = sum(1 for block in mcfg.upscaler_structure for op in block if isinstance(op, int))
+    nets = len(mcfg.prior_structure) + len(mcfg.encoder_structure) + 2
+    n_kernel = len(kernel_scales) if config in ("B", "C") else 0
+    flow = 2 * mcfg.K * (mcfg.L - n_kernel) + 2 * (mcfg.L - 1) + 3
+    per_frame = nets + up + flow
+    gathers = {"A": 0, "B": 2 * mcfg.K * n_kernel, "C": 2 * n_kernel}[config]
+    passes = 2 if remat else 1
+    return dict(halo=ext + frames + passes * frames * per_frame,
+                halo_grad=ext - 1 + frames + frames * per_frame,
+                gather=passes * frames * gathers,
+                gather_grad=frames * (gathers - (n_kernel and 0 in kernel_scales)))
+
+
+def srnn_grid_exchanges(frames: int, remat: bool = True) -> dict:
+    """The same for srnn_mnist (64x64, PhiX to 8x8, smoothing) on 1x2:
+    PhiX's four convs once over all frames, the two LSTMs' gate convs per
+    frame, and per frame PhiZ's conv three times (the posterior's, the
+    prior's and the decoder's latent maps), the two Gaussian heads' stride-2
+    convs, the decoder's three transposed and two 3x3 convs and the
+    likelihood's conv; each head gathers its 4x4 map before its dense
+    layers."""
+    passes = 2 if remat else 1
+    per_frame, gathers = 3 + 2 + 5 + 1, 2
+    return dict(halo=4 + 2 * frames + passes * frames * per_frame,
+                halo_grad=3 + 2 * frames + frames * per_frame,
+                gather=passes * frames * gathers, gather_grad=frames * gathers)
+
+
+def check_grid_kernels(record) -> dict:
+    """The three pointwise kernels at the local shapes a rank of the 1x2
+    grid gives them (half the rows of rfn_mnist_production's B=30 step:
+    the gates on [30, 1, 2, 800], the coupling and the folded 1x1 on each
+    flow scale's [30, hw/2, hw, c]), each against its plain version within
+    phase 3's tolerances, with a bit-for-bit repeat. Returns per kernel the
+    worst error and the rows."""
+    from recurrent_flows_tpu_torch.ops import (
+        actnorm_invconv, actnorm_invconv_ref, convlstm_gates, convlstm_gates_ref,
+        coupling_transform, coupling_transform_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    rnd = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale  # noqa: E731
+    out = {}
+
+    def add(name, shape, err):
+        t = out.setdefault(name, dict(max_abs_err=0.0, rows=[]))
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        t["rows"].append(dict(shape=shape, err=err))
+
+    b = TRAIN_BATCH
+    gates, c = rnd(b, 1, 2, 800), rnd(b, 1, 2, 200)
+    peeps = [rnd(1, 1, 2, 200, scale=0.1) for _ in range(3)]
+    add("convlstm_gates", [b, 1, 2, 800], check_elementwise(
+        "convlstm_gates [30,1,2,800]", convlstm_gates(gates, c, *peeps),
+        convlstm_gates_ref(gates, c, *peeps), (TOL_ELEMENTWISE,) * 2))
+    check_repeats("convlstm_gates [30,1,2,800]", lambda: convlstm_gates(gates, c, *peeps))
+    for l in range(5):
+        hw, ch = 32 >> l, 4 << l
+        x, net = rnd(b, hw // 2, hw, ch), rnd(b, hw // 2, hw, ch, scale=0.5)
+        z2, shift, s = x[..., ch // 2:], net[..., 0::2], torch.tanh(net[..., 1::2])
+        for rev in (False, True):
+            name = f"coupling_transform [{b},{hw // 2},{hw},{ch // 2}] reverse={rev}"
+            add("coupling_transform", [b, hw // 2, hw, ch // 2], check_elementwise(
+                name, coupling_transform(z2, shift, s, rev),
+                coupling_transform_ref(z2, shift, s, rev), (TOL_ELEMENTWISE, TOL_COUPLING_LD)))
+            check_repeats(name, lambda: coupling_transform(z2, shift, s, rev))
+        flat = x.reshape(-1, ch)
+        bias, logs = rnd(ch, scale=0.3), rnd(ch, scale=0.3)
+        w = torch.linalg.qr(rnd(ch, ch))[0].contiguous()
+        name = f"actnorm_invconv [{flat.shape[0]}, {ch}]"
+        add("actnorm_invconv", list(flat.shape), check_elementwise(
+            name, (actnorm_invconv(flat, bias, logs, w),),
+            (actnorm_invconv_ref(flat, bias, logs, w),), (TOL_INVCONV,)))
+        check_repeats(name, lambda: actnorm_invconv(flat, bias, logs, w))
+    for name, t in out.items():
+        print(f"{name} at the grid's local shapes: max |err| {t['max_abs_err']:.3e} over "
+              f"{len(t['rows'])} shapes")
+    record["kernels"] = out
+    return out
+
+
+def _grid_models():
+    """(name, model config) of phase 17's RFN steps."""
+    from recurrent_flows_tpu_torch.config import rfn_mnist_production
+
+    mcfg, _ = rfn_mnist_production()
+    return dict(A=mcfg, B=with_glow(mcfg, coupling_impl="fused"),
+                C=with_glow(mcfg, chain_impl="all"))
+
+
+def _grid_step(trainer, state, batch, seed, mesh=None):
+    """One train step from ``state`` with a fresh Adam and the noise of
+    ``seed``: (metrics, ms, launches, the step's gradients, parameters)."""
+    from recurrent_flows_tpu_torch import ops
+    from recurrent_flows_tpu_torch.utils import NoiseSource
+
+    trainer.model.load_state_dict(state)
+    trainer.optimizer = trainer._adam()
+    noise = NoiseSource(generator=torch.Generator(device="cuda").manual_seed(seed))
+    if mesh is not None:
+        mesh.reset_counts()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = trainer.train_step(batch, beta=1e-4, lr=1e-4, noise=noise)
+    m = {k: float(v) for k, v in m.items()}
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    model = trainer.model
+    return dict(metrics=m, ms=ms, launches=ops.launch_counts(),
+                grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                       if p.grad is not None},
+                params={n: p.detach().cpu() for n, p in model.named_parameters()})
+
+
+def grid_rank(rank: int, world: int, port: int) -> None:
+    """One rank of phase 17 (``python3 chip_smoke.py --grid-rank R W PORT``):
+    joins a gloo group with the other rank on the same card, makes the 1x2
+    grid, and per case of ``GRID_DIR/case.pt`` builds the model from the
+    saved state, takes the warm-up and the timed step and writes
+    ``GRID_DIR/<case>_rank<R>.pt`` (both steps' metrics, ms, launches,
+    exchanges and host seconds in them; the timed step's gradients and
+    parameters; the devices every parameter, gradient and module output
+    lay on)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from recurrent_flows_tpu_torch import models
+    from recurrent_flows_tpu_torch.parallel import make_mesh
+    from recurrent_flows_tpu_torch.training import Trainer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=timedelta(seconds=300))
+    mesh = make_mesh(n_model=world, device="cuda:0")
+    case = torch.load(GRID_DIR / "case.pt", weights_only=False)
+    for name, c in case.items():
+        model = getattr(models, c["family"])(c["config"], device="cuda", remat=False,
+                                             generator=torch.Generator(device="cuda"))
+        devices = set()
+
+        def note(module, inputs, output):
+            for t in (output if isinstance(output, (tuple, list)) else (output,)):
+                if isinstance(t, torch.Tensor):
+                    devices.add(t.device.type)
+
+        hooks = [m.register_forward_hook(note) for m in model.modules()]
+        tr = Trainer(model, c["tcfg"], [], device="cuda", dp=mesh).build(run_ddi=False)
+        steps = []
+        for batch, seed in zip(c["batches"], GRID_SEEDS):
+            local = mesh.local(torch.as_tensor(batch, device="cuda"))
+            s = _grid_step(tr, c["state"], local, seed, mesh)
+            s.update(counts=dict(mesh.counts), exchange_ms=mesh.exchange_s * 1e3)
+            steps.append(s)
+        for h in hooks:
+            h.remove()
+        devices |= {p.device.type for p in model.parameters()}
+        devices |= {p.grad.device.type for p in model.parameters() if p.grad is not None}
+        timed = steps[-1]
+        for s in steps[:-1]:
+            del s["grads"], s["params"]
+        if rank:  # rank 0's tensors are compared in full; this rank's must equal them
+            for key in ("grads", "params"):
+                timed[key + "_sums"] = {n: (float(t.double().sum()), float(t.double().square().sum()))
+                                        for n, t in timed.pop(key).items()}
+        torch.save(dict(steps=steps, devices=sorted(devices)), GRID_DIR / f"{name}_rank{rank}.pt")
+        del tr, model
+        torch.cuda.empty_cache()
+        print(f"rank {rank} {name}: timed step {timed['ms']:.1f} ms, {timed['counts']}")
+    dist.destroy_process_group()
+
+
+def _grid_check(label, got, ref, errors) -> dict:
+    """The bar (see above) of one rank's timed step against the
+    one-process step's; appends what fails to ``errors``. Returns the
+    largest relative metric error, the largest gradient difference
+    against its tensor's largest entry and against the model's (with the
+    tensors), and the parameter elements held by value and by gradient."""
+    out = dict(metric_rel_err=0.0, held=0, noise=0, grad_tensor=(0.0, ""),
+               grad_model=(0.0, ""))
+    for k in ("loss", "kl", "nll"):
+        r = abs(got["metrics"][k] - ref["metrics"][k]) / abs(ref["metrics"][k])
+        out["metric_rel_err"] = max(out["metric_rel_err"], r)
+        if r > GRID_RTOL_METRICS:
+            errors.append(f"{label} {k} {got['metrics'][k]} vs {ref['metrics'][k]}")
+    if set(got["grads"]) != set(ref["grads"]):
+        errors.append(f"{label}: gradients of other parameters")
+        return out
+    g_max = max(float(g.abs().max()) for g in ref["grads"].values())
+    for n, g in ref["grads"].items():
+        t_max = float(g.abs().max())
+        floor = max(GRID_T_FLOOR * t_max, GRID_G_FLOOR * g_max)
+        diff = (got["grads"][n] - g).abs()
+        d = float(diff.max())
+        out["grad_tensor"] = max(out["grad_tensor"], (d / max(t_max, 1e-30), n))
+        out["grad_model"] = max(out["grad_model"], (d / g_max, n))
+        if not torch.all(diff <= GRID_RTOL * g.abs() + floor):
+            errors.append(f"{label} d{n}: max |diff| {d:.3e}, its largest {t_max:.3e}")
+        determined = g.abs() > floor
+        p, q = got["params"][n][determined], ref["params"][n][determined]
+        out["held"] += int(determined.sum())
+        out["noise"] += int((~determined).sum())
+        if not torch.all((p - q).abs() <= GRID_ATOL + GRID_RTOL * q.abs()):
+            errors.append(f"{label} {n}: max |diff| {float((p - q).abs().max()):.3e}")
+    return out
+
+
+def spatial_grid(record, card: str) -> dict:
+    """Phase 17 (see the module docstring). Returns {path: launches of both
+    ranks' timed steps}."""
+    import os
+    import sys
+
+    from recurrent_flows_tpu_torch.config import rfn_mnist_production, srnn_mnist
+    from recurrent_flows_tpu_torch.flows.glow import kernel_fits
+    from recurrent_flows_tpu_torch.models import RFN, SRNN
+    from recurrent_flows_tpu_torch.training import Trainer
+
+    t_phase = time.perf_counter()
+    GRID_DIR.mkdir(parents=True, exist_ok=True)
+    record["kernel_checks"] = {}
+    shapes = check_grid_kernels(record["kernel_checks"])
+    rng = np.random.default_rng(17)
+    kernel_scales = range(1, 5)
+    frames = TRAIN_FRAMES - 1
+    case, refs, want = {}, {}, {}
+    _, tcfg = rfn_mnist_production()
+    for name, cfg in _grid_models().items():
+        model = RFN(cfg, device="cuda", remat=False,
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+        perturb_(model, seed=1)
+        batches = [moving_squares(rng, TRAIN_BATCH, TRAIN_FRAMES, 64) for _ in GRID_SEEDS]
+        tr = Trainer(model, tcfg, batches).build(run_ddi=False)
+        if name != "A":
+            eligible = {l for l, (hw, c, cc) in enumerate(model.flow.scale_shapes)
+                        if kernel_fits(cfg.glow, TRAIN_BATCH, hw, hw, c, cc)}
+            if eligible != set(kernel_scales):
+                raise AssertionError(f"grid {name}: kernel scales {sorted(eligible)}")
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        steps = [_grid_step(tr, state, torch.as_tensor(b, device="cuda"), s)
+                 for b, s in zip(batches, GRID_SEEDS)]
+        want[name] = dict(launches=train_launches(cfg, name, False, frames, kernel_scales),
+                          exchanges=grid_exchanges(cfg, name, frames, kernel_scales, False))
+        case[name] = dict(family="RFN", config=cfg, tcfg=tcfg, batches=batches,
+                          state={k: v.cpu() for k, v in state.items()})
+        refs[name] = steps
+        del tr, model
+        torch.cuda.empty_cache()
+    mcfg, tcfg = srnn_mnist()
+    model = SRNN(mcfg, device="cuda", remat=False,
+                 generator=torch.Generator(device="cuda").manual_seed(0))
+    perturb_(model, seed=1)
+    batches = [(rng.random((tcfg.batch_size, tcfg.n_frames, 64, 64, 1)) > 0.8).astype(np.float32)
+               for _ in GRID_SEEDS]
+    tr = Trainer(model, tcfg, batches).build()
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    refs["srnn"] = [_grid_step(tr, state, torch.as_tensor(b, device="cuda"), s)
+                    for b, s in zip(batches, GRID_SEEDS)]
+    want["srnn"] = dict(launches=family_launches("srnn_mnist", "train", tcfg.n_frames),
+                        exchanges=srnn_grid_exchanges(tcfg.n_frames - 1, False))
+    case["srnn"] = dict(family="SRNN", config=mcfg, tcfg=tcfg, batches=batches,
+                        state={k: v.cpu() for k, v in state.items()})
+    del tr, model
+    torch.cuda.empty_cache()
+    torch.save(case, GRID_DIR / "case.pt")
+    del case
+
+    t_ranks = time.perf_counter()
+    port = free_port()
+    logs = [open(GRID_DIR / f"rank{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--grid-rank",
+                               str(r), "2", str(port)], cwd=ROOT, stdout=logs[r],
+                              stderr=subprocess.STDOUT, env=dict(os.environ))
+             for r in range(2)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks_s = time.perf_counter() - t_ranks
+    if any(codes):
+        tails = [(GRID_DIR / f"rank{r}.log").read_text()[-3000:] for r in range(2)]
+        raise AssertionError(f"grid ranks exited with {codes}:\n" + "\n".join(tails))
+
+    errors, paths = [], {}
+    record["steps"] = {}
+    for name, ref in refs.items():
+        ranks = [torch.load(GRID_DIR / f"{name}_rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        rows = []
+        for r, got in enumerate(ranks):
+            if got["devices"] != ["cuda"]:
+                errors.append(f"{name} rank {r}: tensors on {got['devices']}")
+            for i, (s, s_ref) in enumerate(zip(got["steps"], ref)):
+                ex = {k: s["counts"][k] for k in ("halo", "halo_grad", "gather", "gather_grad")}
+                if ex != want[name]["exchanges"]:
+                    errors.append(f"{name} rank {r} step {i}: exchanges {ex}, expected "
+                                  f"{want[name]['exchanges']}")
+                if s["launches"] != want[name]["launches"] or s_ref["launches"] != s["launches"]:
+                    errors.append(f"{name} rank {r} step {i}: launches {s['launches']}, "
+                                  f"one process {s_ref['launches']}, expected "
+                                  f"{want[name]['launches']}")
+                for k in ("loss", "kl", "nll"):
+                    if abs(s["metrics"][k] - s_ref["metrics"][k]) > (
+                            GRID_RTOL_METRICS * abs(s_ref["metrics"][k])):
+                        errors.append(f"{name} rank {r} step {i} {k}: {s['metrics'][k]} vs "
+                                      f"{s_ref['metrics'][k]}")
+            timed = got["steps"][-1]
+            if r == 0:
+                held = _grid_check(f"{name} rank 0", timed, ref[-1], errors)
+                sums = {key: {n: (float(t.double().sum()), float(t.double().square().sum()))
+                              for n, t in timed[key].items()} for key in ("grads", "params")}
+            else:  # the gradients are reduced before Adam: every rank holds rank 0's
+                for key in ("grads", "params"):
+                    mine = timed[key + "_sums"]
+                    if mine.keys() != sums[key].keys() or any(
+                            abs(a - b) > 1e-12 * abs(b) for n in mine
+                            for a, b in zip(mine[n], sums[key][n])):
+                        errors.append(f"{name} rank {r}: {key} differ from rank 0's")
+            rows.append(dict(rank=r, ms=timed["ms"], exchange_ms=timed["exchange_ms"],
+                             counts=timed["counts"], metrics=timed["metrics"], **held))
+        paths[f"grid_train_{name}"] = {k: sum(g["steps"][-1]["launches"][k] for g in ranks)
+                                       for k in SOURCES}
+        record["steps"][name] = dict(one_process_ms=ref[-1]["ms"],
+                                     one_process_metrics=ref[-1]["metrics"], ranks=rows)
+        print(f"grid 1x2 {name}: {rows[0]['ms']:.1f} / {rows[1]['ms']:.1f} ms a step sharded "
+              f"(ranks 0/1) vs {ref[-1]['ms']:.1f} ms in one process; "
+              f"{rows[0]['counts']['halo']} halos + {rows[0]['counts']['halo_grad']} back, "
+              f"{rows[0]['counts']['gather']} gathers per rank, "
+              f"{rows[0]['exchange_ms']:.1f} / {rows[1]['exchange_ms']:.1f} host ms in "
+              f"exchanges; loss {rows[0]['metrics']['loss']:.4f} vs "
+              f"{ref[-1]['metrics']['loss']:.4f} (worst metric rel err "
+              f"{max(x['metric_rel_err'] for x in rows):.2e}); largest gradient diff "
+              f"{rows[0]['grad_tensor'][0]:.2e} of its tensor's largest "
+              f"({rows[0]['grad_tensor'][1]}), {rows[0]['grad_model'][0]:.2e} of the "
+              f"model's ({rows[0]['grad_model'][1]}); {rows[0]['held']} parameter "
+              f"elements held by value, {rows[0]['noise']} by gradient; on {card}")
+    if errors:
+        raise AssertionError("phase 17: " + "; ".join(errors[:12]))
+
+    # the two-moons example on the card
+    import importlib.util
+
+    from recurrent_flows_tpu_torch.data.png import read_png
+
+    spec = importlib.util.spec_from_file_location("torch_two_moons",
+                                                  ROOT / "examples" / "torch_two_moons.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = example.main(["--steps", "300", "--out", str(GRID_DIR / "two_moons")])
+    moons_s = time.perf_counter() - t0
+    falls = {k: (float(np.mean(v[:20])), float(np.mean(v[-20:])))
+             for k, v in out["losses"].items()}
+    figures = [read_png(f).shape for f in out["files"]]
+    if any(b >= a for a, b in falls.values()) or len(figures) != 4:
+        raise AssertionError(f"two moons: losses {falls}, figures {figures}")
+    record["two_moons"] = dict(seconds=moons_s, losses_first_last20=falls, figures=figures)
+    print(f"two moons on the card: {moons_s:.1f} s for 3 x 300 steps, nll (first 20 -> last 20) "
+          + ", ".join(f"{k} {a:.3f} -> {b:.3f}" for k, (a, b) in falls.items()))
+    record.update(ranks_s=ranks_s, phase_s=time.perf_counter() - t_phase)
+    print(f"phase 17: {record['phase_s']:.0f} s, the two ranks {ranks_s:.0f} s of it")
+    return paths, shapes
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3772,6 +4201,11 @@ def main() -> None:
     record["standalone"]["phase_s"] = time.perf_counter() - t0
     print(f"standalone models done at {time.perf_counter() - t_start:.0f} s "
           f"(phase 16: {record['standalone']['phase_s']:.0f} s)")
+    record["grid"] = {}
+    grid_paths, grid_shapes = spatial_grid(record["grid"], card)
+    paths.update(grid_paths)
+    print(f"spatial grid done at {time.perf_counter() - t_start:.0f} s "
+          f"(phase 17: {record['grid']['phase_s']:.0f} s)")
 
     launches = {name: sum(p[name] for p in paths.values()) for name in SOURCES}
     never = [name for name in SOURCES if launches[name] == 0]
@@ -3792,19 +4226,24 @@ def main() -> None:
         ("glow_image_train_C", ("glowchain",)), ("glow_image_sample", ("glowchain",)),
         ("cglow_sample", ("glowchain",)),
         ("rfn_vgg_train", ("actnorm_invconv", "convlstm_gates", "coupling_transform")),
-        ("rfn_vgg_request", ("convlstm_gates", "coupling_transform", "glowchain")))
+        ("rfn_vgg_request", ("convlstm_gates", "coupling_transform", "glowchain")),
+        ("grid_train_A", ("actnorm_invconv", "convlstm_gates", "coupling_transform")),
+        ("grid_train_B", ("glowstep",)), ("grid_train_C", ("glowchain",)),
+        ("grid_train_srnn", ("convlstm_gates",)))
         for name in names if paths[path][name] == 0]
     if never or on_bair or on_families or on_eval or on_export or on_standalone:
         raise AssertionError(f"kernels the main paths never launched: {never}; "
                              f"that rfn_bair never launched: {on_bair}; family paths "
                              f"without the gates: {on_families}; that evaluation never "
                              f"launched: {on_eval}; that the export never launched: "
-                             f"{on_export}; that the standalone models never launched: "
+                             f"{on_export}; that the standalone models or the grid never "
+                             f"launched: "
                              f"{on_standalone}")
     max_err = {name: max(kernels[name]["max_abs_err"], new[name]["max_abs_err"])
                for name in SOURCES}
     max_err["convlstm_gates"] = max(max_err["convlstm_gates"], fam_gates["max_abs_err"])
-    for name, t in list(cli_checks.items()) + list(standalone_shapes.items()):
+    for name, t in (list(cli_checks.items()) + list(standalone_shapes.items())
+                    + list(grid_shapes.items())):
         max_err[name] = max(max_err[name], t["max_abs_err"])
     line = {"kernels": [
         dict(name=name, route=route, source=source, replaces=replaces,
@@ -3815,7 +4254,8 @@ def main() -> None:
              **({"srnn_vrnn_shapes": fam_gates["rows"]} if name == "convlstm_gates" else {}),
              **({"cli_shapes": cli_checks[name]["rows"]} if name in cli_checks else {}),
              **({"glow_image_shapes": standalone_shapes[name]}
-                if name in standalone_shapes else {}))
+                if name in standalone_shapes else {}),
+             **({"grid_shapes": grid_shapes[name]["rows"]} if name in grid_shapes else {}))
         for name, (route, source, replaces) in SOURCES.items()],
         "launch_floor_ms": record["launch_floor_ms"]}
     record.update(line, total_s=time.perf_counter() - t_start)
@@ -3831,4 +4271,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:2] == ["--grid-rank"]:  # one rank of phase 17, started by it
+        grid_rank(*(int(a) for a in sys.argv[2:5]))
+    else:
+        main()

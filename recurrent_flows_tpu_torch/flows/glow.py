@@ -26,6 +26,13 @@ parameters, so their gradients reach ``logs`` and ``log_s`` by autograd.
 The data-dependent-init pass (``ddi=True``) always takes the module path.
 With ``flow_norm='batchnorm'`` the step norm is a ``BatchNormFlow``:
 ``training`` (forward) picks the batch's statistics or the running ones.
+
+On a (data x model) grid (``parallel.mesh``) the module path runs on this
+rank's rows. A scale that takes either kernel gathers its rows and its
+condition's first, asks ``kernel_fits`` with the whole frame (so every
+rank picks the plan of the one-process step), runs the kernel on the whole
+frame, then keeps its own rows and its share of the log-determinant, as
+GSPMD does around a custom call it cannot partition.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..config import GlowConfig, check_glow_supported
 from ..nn.layers import act
 from ..ops.glowchain import glowchain
 from ..ops.glowstep import GlowStepParams, glowstep, plan_exists
+from ..parallel.mesh import grid, own_rows
 from ..utils.numerics import (batch_reduce, normal_log_prob, split_feature,
                               squeeze2d, unsqueeze2d)
 from .modules import (ActNorm, AffineCoupling, BatchNormFlow, Conv2dNorm, Conv2dZeros,
@@ -120,16 +128,24 @@ class GlowStep(nn.Module):
                                      device=device, generator=generator)
 
     def fused_eligible(self, x, condition) -> bool:
-        """This step runs through the ``glowstep`` kernel on ``x``."""
+        """This step runs through the ``glowstep`` kernel on ``x`` (on a
+        grid, on the whole frame of which x holds rows)."""
+        g = grid()
+        shape = x.shape if g is None else g.global_shape(x)
         return (self.cfg.coupling_impl == "fused"
-                and kernel_fits(self.cfg, *x.shape, condition.shape[-1]))
+                and kernel_fits(self.cfg, *shape, condition.shape[-1]))
 
     def _fused(self, x, condition, reverse: bool):
-        """(y, this step's whole logdet [B]) through the glowstep kernel."""
+        """(y, this step's whole logdet [B]) through the glowstep kernel; on
+        a grid, of the gathered frame: own rows and this rank's share."""
+        g = grid()
+        if g is not None:
+            x, condition = g.gather(x), g.gather(condition)
         params, static_ld_px = prep_glowstep_params(self, reverse)
         y, dyn_ld = glowstep(x.contiguous(), condition.contiguous(), params,
                              self.cfg.clamp_type, reverse)
-        return y, dyn_ld + static_ld_px * (x.shape[1] * x.shape[2])
+        ld = dyn_ld + static_ld_px * (x.shape[1] * x.shape[2])
+        return (y, ld) if g is None else (g.reshard(y), g.share(ld, y))
 
     def forward(self, x, condition, logdet=None, ddi: bool = False,
                 training: bool = True):
@@ -203,7 +219,7 @@ class ListGlow(nn.Module):
             h = act(self.prior1(h, ddi), self.cfg.non_lin)
             return split_feature(self.prior_out(h), "split")
         shape = (batch, self.final_hw, self.final_hw, self.final_channels)
-        zeros = torch.zeros(shape, device=base_condition.device)
+        zeros = own_rows(torch.zeros(shape, device=base_condition.device))
         return zeros, zeros
 
     # -- the glowchain kernel ---------------------------------------------
@@ -246,9 +262,15 @@ class ListGlow(nn.Module):
             z = squeeze2d(z)
             if not ddi and self.chain_eligible(l, z.shape[0], reverse=False):
                 params, static_ld_px = self.chain_params(l, reverse=False)
-                z, dyn_ld = glowchain(z.contiguous(), conditions[l].contiguous(),
+                g, cond = grid(), conditions[l]
+                if g is not None:  # the whole frame (module docstring)
+                    z, cond = g.gather(z), g.gather(cond)
+                z, dyn_ld = glowchain(z.contiguous(), cond.contiguous(),
                                       params, cfg.clamp_type, False)
-                logdet = logdet + dyn_ld + static_ld_px * (z.shape[1] * z.shape[2])
+                ld = dyn_ld + static_ld_px * (z.shape[1] * z.shape[2])
+                if g is not None:
+                    z, ld = g.reshard(z), g.share(ld, z)
+                logdet = logdet + ld
             else:
                 for k in range(cfg.K):
                     z, logdet = self.step(l, k)(z, conditions[l], logdet, ddi,
@@ -293,7 +315,9 @@ class ListGlow(nn.Module):
         dims = x.shape[1] * x.shape[2] * x.shape[3]
         if dequantize:
             x = x + noise.uniform(x, 0.0, 1.0 / n_bins)
-        obj = torch.full((b,), logdet - math.log(n_bins) * dims,
+        const = logdet - math.log(n_bins) * dims
+        g = grid()
+        obj = torch.full((b,), const if g is None else g.share(const, x),
                          dtype=x.dtype, device=x.device)
         z, obj = self.f(x, conditions, obj, ddi, training)
         mean, log_scale = self.base_params(base_condition, b, ddi)

@@ -11,6 +11,11 @@ see ``flows/ddi.py``) is the exception: there every ActNorm runs unfolded
 on its own input, sets its ``bias``/``logs`` from it in place, and uses
 the fresh values. A ``Conv2dNorm`` with a batch norm or no norm, and the
 ``BatchNormFlow`` step norm, have nothing to fold.
+
+On a (data x model) grid (``parallel.mesh``) every log-determinant term is
+this rank's share: per-pixel terms times ``pixel_share``, sums over a map
+through ``batch_reduce``/``Mesh.share``, and a ``BatchNormFlow`` uses its
+own rows of its per-position parameters.
 """
 
 from __future__ import annotations
@@ -22,8 +27,8 @@ from torch import nn
 from ..nn.layers import Conv2d, act, conv_nhwc
 from ..ops.fused import actnorm_invconv, coupling_transform
 from ..ops.glowstep import clamp
-from ..parallel.data_parallel import batch_mean
-from ..utils.numerics import batch_reduce, normal_log_prob, split_feature
+from ..parallel.mesh import batch_mean, grid
+from ..utils.numerics import batch_reduce, normal_log_prob, pixel_share, split_feature
 from ..utils.running_stats import ema_, flow_stats_update
 
 
@@ -47,7 +52,7 @@ class ActNorm(nn.Module):
             self.logs.copy_(torch.log(1.0 / (flat.std(0, unbiased=True) + 1e-6)))
         y = (x + self.bias) * torch.exp(self.logs)
         if logdet is not None:
-            logdet = logdet + self.logs.sum() * (x.shape[1] * x.shape[2])
+            logdet = logdet + self.logs.sum() * pixel_share(x)
         return y, logdet
 
 
@@ -72,6 +77,13 @@ class BatchNormFlow(nn.Module):
         self.register_buffer("running_var", torch.ones(shape, device=device))
 
     def forward(self, x, logdet=None, training: bool = True):
+        """On a grid where x holds its rows: the rows of ``log_gamma``,
+        ``beta`` and the running statistics at those rows."""
+        log_gamma, beta = self.log_gamma, self.beta
+        g = grid()
+        rows = g is not None and g.sharded(x)
+        if rows:
+            log_gamma, beta = g.rows_of(log_gamma, 0), g.rows_of(beta, 0)
         if training:
             mean = batch_mean(x, 0)
             var = batch_mean((x - mean).square(), 0) + self.eps
@@ -80,9 +92,12 @@ class BatchNormFlow(nn.Module):
                 ema_(self.running_var, var, self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
-        y = torch.exp(self.log_gamma) * (x - mean) * torch.rsqrt(var) + self.beta
+            if rows:
+                mean, var = g.rows_of(mean, 0), g.rows_of(var, 0)
+        y = torch.exp(log_gamma) * (x - mean) * torch.rsqrt(var) + beta
         if logdet is not None:
-            logdet = logdet + (self.log_gamma - 0.5 * torch.log(var)).sum()
+            ld = (log_gamma - 0.5 * torch.log(var)).sum()
+            logdet = logdet + (ld if g is None else g.share(ld, x))
         return y, logdet
 
     def reverse(self, y):
@@ -159,7 +174,7 @@ class InvConv(nn.Module):
         else:
             z = x @ w.T
         if logdet is not None:
-            logdet = logdet + dlogdet * (x.shape[1] * x.shape[2])
+            logdet = logdet + dlogdet * pixel_share(x)
         return z, logdet
 
     def reverse(self, x, fold_bias=None, fold_logs=None):
@@ -259,7 +274,8 @@ class AffineCoupling(nn.Module):
         # z2 and shift are strided views ('split' and 'cross' halves); the
         # kernel reads them where they lie
         z2, ld = coupling_transform(z2, shift, s, reverse=reverse)
-        return torch.cat([z1, z2], -1), ld
+        g = grid()
+        return torch.cat([z1, z2], -1), (ld if g is None else g.share(ld, z2))
 
     def forward(self, x, condition, logdet=None, ddi: bool = False):
         y, ld = self._transform(x, condition, False, ddi)

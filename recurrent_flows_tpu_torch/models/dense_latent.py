@@ -7,7 +7,10 @@ loss types; and ``DenseLatentModel``, what the two models share on top of
 them.
 
 Each batch norm normalises over the batch it is given, so a caller must
-hand each net the batch the JAX package hands it.
+hand each net the batch the JAX package hands it. On a (data x model) grid
+(``parallel.mesh``) the conv nets run on this rank's rows and the
+Gaussian heads gather the rows before their dense layers; ``PhiZ``'s map
+keeps its own rows from its conv on.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from torch import nn
 
 from ..nn.layers import Conv2d, ConvTranspose2d, Dense, NormLayer
 from ..ops.mol import DiscretizedMixtureLogits, DiscretizedMixtureLogits1d
+from ..parallel.mesh import grid
 from ..utils.numerics import NoiseSource, batch_reduce, normal_log_prob, normal_sample
 
 
@@ -100,6 +104,9 @@ class ConvMLPGaussian(nn.Module):
 
     def forward(self, x, use_running_average: bool = False):
         h = F.relu(self.trunk_norm(self.trunk_conv(x), use_running_average))
+        g = grid()
+        if g is not None:  # the dense heads take the whole map
+            h = g.gather(h)
         h = h.reshape(h.shape[0], -1)
         return self._head("mean", h), F.softplus(self._head("std", h))
 
@@ -185,6 +192,8 @@ class LikelihoodHead(nn.Module):
             if self.dequantize:
                 x = x_t + u
                 corr = -math.log(n_bins) * x_t.shape[1] * x_t.shape[2] * x_t.shape[3]
+                g = grid()
+                corr = corr if g is None else g.share(corr, x_t)
             std = F.softplus(self.variance)
             return -batch_reduce(normal_log_prob(x, y, std * torch.ones_like(y))) - corr
         if self.loss_type == "mse":

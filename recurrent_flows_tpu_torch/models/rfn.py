@@ -13,7 +13,9 @@ x), the diagnostics ``param_analysis``, ``probability_future`` and
 interpolation API ``get_zt_ht_from_seq`` / ``predicts_from_zt_ht``.
 ``init_running_stats`` and ``stats_refresh`` are the passes that update
 running statistics (``flow_norm='batchnorm'``, ``track_running_stats``);
-``eval_norm`` normalises the feature nets with them.
+``eval_norm`` normalises the feature nets with them. On a (data x model)
+grid (``parallel.mesh``, a ``Trainer`` step) ``loss`` runs on this rank's
+rows of every frame and returns its share of the sums.
 
 The frameworks cannot share a PRNG, so every draw goes through a
 :class:`~recurrent_flows_tpu_torch.utils.numerics.NoiseSource`, in the
@@ -56,8 +58,9 @@ from ..flows.glow import ListGlow
 from ..nn.convlstm import ConvLSTMCell, conv_lstm_scan
 from ..nn.layers import SimpleParamNet
 from ..nn.vgg import VGGDownscaler, VGGUpscaler, downscaler_layer_sizes
-from ..utils.numerics import (NoiseSource, batch_reduce, float32_precision,
-                              free_bits_kl, normal_kl, normal_sample)
+from ..utils.numerics import (NoiseSource, batch_reduce, expand_to_batch,
+                              float32_precision, free_bits_kl, normal_kl,
+                              normal_sample)
 from ..utils.running_stats import updating_running_stats
 
 
@@ -144,9 +147,8 @@ class RFN(nn.Module):
 
     def get_inits(self, batch: int):
         """The learned [1, ...] initial states, broadcast to the batch."""
-        rep = lambda p: p.expand((batch,) + p.shape[1:])
-        return (rep(self.h_0), rep(self.c_0), rep(self.a_0), rep(self.ca_0),
-                rep(self.z_0), rep(self.z_0x))
+        return tuple(expand_to_batch(p, batch) for p in (
+            self.h_0, self.c_0, self.a_0, self.ca_0, self.z_0, self.z_0x))
 
     def _features(self, x):
         """One extractor call over all B·T frames: [B,T,H,W,C] -> (per-block

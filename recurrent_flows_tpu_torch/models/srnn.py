@@ -42,7 +42,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import SRNNConfig, check_supported
 from ..nn.convlstm import ConvLSTMCell, conv_lstm_scan
-from ..utils.numerics import NoiseSource, float32_precision, normal_kl, normal_sample
+from ..utils.numerics import (NoiseSource, expand_to_batch, float32_precision,
+                              normal_kl, normal_sample)
 from ..utils.running_stats import updating_running_stats
 from .dense_latent import FEAT, ZMAP, DenseLatentModel
 
@@ -75,9 +76,8 @@ class SRNN(DenseLatentModel):
 
     def get_inits(self, batch: int):
         """The learned [1, ...] initial states, broadcast to the batch."""
-        rep = lambda p: p.expand((batch,) + p.shape[1:])
-        return (rep(self.h_0), rep(self.c_0), rep(self.a_0), rep(self.ca_0),
-                rep(self.z_0), rep(self.z_0x))
+        return tuple(expand_to_batch(p, batch) for p in (
+            self.h_0, self.c_0, self.a_0, self.ca_0, self.z_0, self.z_0x))
 
     def _prior_params(self, ht, z):
         return self._prior_n(torch.cat([ht, self._phi_z_n(z)], -1))

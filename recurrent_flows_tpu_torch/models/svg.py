@@ -41,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import SVGConfig, check_supported
 from ..nn.dense_lstm import SVGGaussianLSTM, SVGLSTM
-from ..nn.layers import Conv2d, ConvTranspose2d, NormLayer, max_pool_nhwc
+from ..nn.layers import Conv2d, ConvTranspose2d, NormLayer, max_pool_nhwc, upsample_nearest2x
 from ..utils.numerics import (NoiseSource, batch_reduce, float32_precision, normal_kl,
                               normal_log_prob)
 from ..utils.running_stats import updating_running_stats
@@ -143,8 +143,7 @@ class SVGDecoder(_VGGStack):
         x = self.up0(vec.reshape(vec.shape[0], 1, 1, self.dim))
         x = F.leaky_relu(self.up0_norm(x, ura), 0.2)
         for s, names in self.stages:
-            x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-            x = torch.cat([x, skips[s]], -1)
+            x = torch.cat([upsample_nearest2x(x), skips[s]], -1)
             for name in names:
                 x = self._run(name, x, ura)
         return torch.sigmoid(self.out_conv(x))

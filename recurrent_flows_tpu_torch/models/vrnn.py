@@ -31,7 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import VRNNConfig, check_supported
 from ..nn.convlstm import ConvLSTMCell
-from ..utils.numerics import NoiseSource, float32_precision, normal_kl, normal_sample
+from ..utils.numerics import (NoiseSource, expand_to_batch, float32_precision,
+                              normal_kl, normal_sample)
 from ..utils.running_stats import updating_running_stats
 from .dense_latent import FEAT, ZMAP, DenseLatentModel
 
@@ -58,8 +59,7 @@ class VRNN(DenseLatentModel):
 
     def get_inits(self, batch: int):
         """(h_0, c_0, z_0, z_0x) broadcast to the batch."""
-        rep = lambda p: p.expand((batch,) + p.shape[1:])
-        return rep(self.h_0), rep(self.c_0), rep(self.z_0), rep(self.z_0x)
+        return tuple(expand_to_batch(p, batch) for p in (self.h_0, self.c_0, self.z_0, self.z_0x))
 
     def _advance(self, feat_prev, zprev, h, c):
         return self.lstm(torch.cat([feat_prev, self._phi_z_n(zprev)], -1), h, c)

@@ -9,13 +9,16 @@ import torch
 from torch import nn
 
 from ..ops.fused import convlstm_gates
+from ..parallel.mesh import own_rows
 from .layers import Conv2d
 
 
 class ConvLSTMCell(nn.Module):
     """One peephole ConvLSTM step: a fused 3x3 gate conv over [x | h] with
     gate order (i, f, o, g), peepholes ``Wci``/``Wcf``/``Wco`` of shape
-    [1, H, W, hidden] (zero at init), and the ``convlstm_gates`` kernel."""
+    [1, H, W, hidden] (zero at init), and the ``convlstm_gates`` kernel.
+    On a grid the gate conv exchanges halo rows and the kernel runs on
+    this rank's rows with its rows of the peepholes."""
 
     def __init__(self, in_channels: int, hidden_channels: int,
                  spatial: tuple, kernel: int = 3, *, device=None,
@@ -35,8 +38,8 @@ class ConvLSTMCell(nn.Module):
 
     def forward(self, x, h, c):
         gates = self.gates(torch.cat([x, h], -1)).contiguous()
-        return convlstm_gates(gates, c.contiguous(), self.Wci, self.Wcf,
-                              self.Wco)
+        peeps = (own_rows(p).contiguous() for p in (self.Wci, self.Wcf, self.Wco))
+        return convlstm_gates(gates, c.contiguous(), *peeps)
 
 
 def conv_lstm_scan(cell, xs, h0, c0, reverse: bool = False):

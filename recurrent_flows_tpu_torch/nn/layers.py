@@ -8,6 +8,15 @@ spatially flipped for ``F.conv_transpose2d`` (``convert`` does both), and a
 ``Dense`` kernel keeps flax's [in, out] layout (``x @ kernel``), so it
 converts as it is. Convolutions take NHWC and run on the NCHW view of the
 same memory (channels-last strides), so no copy is made.
+
+Inside a train step on a (data x model) grid (``parallel.mesh.grid``) the
+spatial ops work on this rank's rows of every map: a 3x3 conv pads its
+rows with its neighbours' (a stride-2 one with one row on top, where its
+local height is even), the k4 s2 transposed conv takes one row each side,
+the 2x2 pool and the upsample keep to their own rows; an op that cannot
+(an odd local height in front of the pool or a stride-2 conv, a 'VALID'
+conv) gathers the rows and computes replicated; every op's output keeps
+its own rows again where its height divides over 'model'.
 """
 
 from __future__ import annotations
@@ -19,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.data_parallel import batch_mean
+from ..parallel.mesh import batch_mean, grid, own_rows
 from ..utils.running_stats import ema_, layer_stats_update
 
 
@@ -32,17 +41,52 @@ def act(x: torch.Tensor, non_lin: str) -> torch.Tensor:
     raise ValueError(f"unknown activation: {non_lin}")
 
 
+def _conv(x, kernel, bias, stride, padding):
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel, bias, stride, padding)
+    return y.permute(0, 2, 3, 1)
+
+
 def conv_nhwc(x, kernel, bias=None, stride: int = 1, padding: int | None = None):
     """kxk conv, x NHWC, kernel OIHW, with explicit (k-1)//2 padding per
-    side unless ``padding`` is given (0 is flax's 'VALID')."""
-    p = (kernel.shape[-1] - 1) // 2 if padding is None else padding
-    y = F.conv2d(x.permute(0, 3, 1, 2), kernel, bias, stride, p)
-    return y.permute(0, 2, 3, 1)
+    side unless ``padding`` is given (0 is flax's 'VALID'). On a grid: the
+    halo rows in place of the padding of H (module docstring)."""
+    k = kernel.shape[-1]
+    p = (k - 1) // 2 if padding is None else padding
+    g = grid()
+    if g is None:
+        return _conv(x, kernel, bias, stride, p)
+    x = g.reshard(x)
+    if g.sharded(x) and k > 1:
+        h = x.shape[1]
+        if stride == 1 and k % 2 and p == (k - 1) // 2 and h >= p:
+            return _conv(g.halo(x, p, p), kernel, bias, 1, (0, p))
+        if (k, stride, p) == (3, 2, 1) and h % 2 == 0:
+            # output row i reads input rows 2i-1 .. 2i+1: one row from above
+            return _conv(g.halo(x, 1, 0), kernel, bias, 2, (0, 1))
+        x = g.gather(x)
+    return g.reshard(_conv(x, kernel, bias, stride, p))
+
+
+def _halving(x):
+    """x ready for an op that halves its height on a grid: its own rows
+    where their count is even, else the whole frame."""
+    g = grid()
+    if g is None:
+        return x
+    x = g.reshard(x)
+    return g.gather(x) if g.sharded(x) and x.shape[1] % 2 else x
 
 
 def max_pool_nhwc(x):
     """2x2 max pool, stride 2, no padding."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+    y = F.max_pool2d(_halving(x).permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+    return own_rows(y)
+
+
+def upsample_nearest2x(x):
+    """Nearest-neighbour 2x upsample of an NHWC map."""
+    x = own_rows(x)
+    return own_rows(x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2))
 
 
 def normal_(shape, std: float, generator, device) -> torch.Tensor:
@@ -120,9 +164,20 @@ class ConvTranspose2d(nn.Module):
                      else None)
 
     def forward(self, x):
+        """On a grid the 'SAME' k4 s2 op takes one halo row each side and
+        pads H by 3 (output row o of the local rows reads input rows
+        (o-2)/2 .. (o+1)/2); a 'VALID' one computes replicated."""
+        g = grid()
+        pad = self.padding
+        if g is not None:
+            x = g.reshard(x)
+            if g.sharded(x) and pad == 1:
+                x, pad = g.halo(x, 1, 1), (3, 1)
+            else:
+                x = g.gather(x)
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.kernel, self.bias,
-                               self.stride, self.padding)
-        return y.permute(0, 2, 3, 1)
+                               self.stride, pad)
+        return own_rows(y.permute(0, 2, 3, 1))
 
 
 class Dense(nn.Module):
@@ -144,7 +199,7 @@ class Dense(nn.Module):
 class NormLayer(nn.Module):
     """{batchnorm | instancenorm | none}. Batch norm normalises with the
     current batch's statistics over axes (0,1,2) (of the global batch in a
-    data-parallel step: ``parallel.batch_mean``), biased variance, eps 1e-5
+    data-parallel or grid step: ``parallel.batch_mean``), biased variance, eps 1e-5
     inside the rsqrt. With ``track_running_stats`` it also keeps running
     averages in torch's convention (momentum 0.1, new = (1-m)·old +
     m·batch, the unbiased variance), updated only in a refresh pass
@@ -177,7 +232,7 @@ class NormLayer(nn.Module):
             if self.norm_type == "batchnorm":
                 moment = lambda t: batch_mean(t, (0, 1, 2), keepdim=True)
             else:
-                moment = lambda t: t.mean((1, 2), keepdim=True)
+                moment = lambda t: batch_mean(t, (1, 2), keepdim=True)
             mean = moment(x)
             var = moment((x - mean).square())
             if self.track and layer_stats_update():

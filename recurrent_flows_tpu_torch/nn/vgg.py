@@ -19,11 +19,8 @@ from torch import nn
 
 from ..config import UPSCALER_OPS
 from ..utils.numerics import squeeze2d, unsqueeze2d
-from .layers import Conv2d, ConvTranspose2d, NormLayer, act, max_pool_nhwc
-
-
-def _upsample_nearest2x(x):
-    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+from .layers import (Conv2d, ConvTranspose2d, NormLayer, act, max_pool_nhwc,
+                     upsample_nearest2x)
 
 
 def downscaler_layer_sizes(structures, in_channels: int, image_size: int,
@@ -151,7 +148,7 @@ class VGGUpscaler(nn.Module):
     def _up(self, l, x, use_running_average):
         op = self.up_ops[l]
         if op == "upsample":
-            return _upsample_nearest2x(x)
+            return upsample_nearest2x(x)
         x = getattr(self, f"b{l}_up")(x) if op == "deconv" else unsqueeze2d(x)
         return act(getattr(self, f"b{l}_up_norm")(x, use_running_average), self.non_lin)
 

@@ -10,7 +10,9 @@
   shaded bands and vertical marks, all series on one vertical scale;
 * :func:`loss_panel`: the four loss histories, each a polyline on its own
   panel, scaled to the panel's height between its least and largest
-  finite value, with no text (the panels' order is the caller's).
+  finite value, with no text (the panels' order is the caller's);
+* :func:`heatmap`: a density on a square grid in a dark-to-light ramp,
+  with points drawn over it (``examples/torch_two_moons.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ LINE = (31, 119, 180)  # the polylines' colour (the palette's first)
 PALETTE = (LINE, (255, 127, 14), (44, 160, 44), (214, 39, 40), (148, 103, 189))
 AXES = (160, 160, 160)  # the panels' frames and the vertical marks
 CONTEXT, PREDICTION = (255, 0, 0), (0, 160, 0)  # boxed_grid's frames
+HEAT = ((0, 0, 4), (81, 18, 124), (183, 55, 121), (252, 137, 97), (252, 253, 191))
+POINTS = (0, 255, 255)  # heatmap's points
 
 
 def frame_grid(rows, max_frames: int = 10) -> np.ndarray:
@@ -126,3 +130,25 @@ def loss_panel(histories, height: int = 120, width: int = 200, pad: int = 6) -> 
     finite value at the bottom to its largest at the top. Non-finite values
     are left out; an empty history leaves an empty frame."""
     return np.concatenate([line_panel([h], height, width, pad) for h in histories], 1)
+
+
+def heatmap(values, points=None, extent: float = 1.0, colour=POINTS) -> np.ndarray:
+    """values [n, n] on the square [-extent, extent]² (row 0 at the bottom,
+    as matplotlib's ``origin='lower'``) -> uint8 RGB [n, n, 3], row 0 at the
+    top: value / max through the ramp ``HEAT`` (dark = 0); ``points`` [k, 2]
+    (x, y), where given, drawn over it in ``colour``, those outside left
+    out. Non-finite values are drawn as 0."""
+    v = np.nan_to_num(np.asarray(values, np.float64), nan=0.0, posinf=0.0, neginf=0.0)
+    top = v.max()
+    t = np.clip(v / top, 0.0, 1.0) if top > 0 else np.zeros_like(v)
+    stops = np.linspace(0.0, 1.0, len(HEAT))
+    img = np.stack([np.interp(t, stops, [c[k] for c in HEAT]) for k in range(3)], -1)
+    img = np.rint(img[::-1]).astype(np.uint8)
+    if points is not None:
+        n_y, n_x = v.shape
+        p = np.asarray(points, np.float64)
+        col = np.rint((p[:, 0] + extent) / (2 * extent) * (n_x - 1)).astype(int)
+        row = np.rint((1 - (p[:, 1] + extent) / (2 * extent)) * (n_y - 1)).astype(int)
+        inside = (col >= 0) & (col < n_x) & (row >= 0) & (row < n_y)
+        img[row[inside], col[inside]] = colour
+    return img

@@ -33,6 +33,16 @@ initialised model. Only rank 0 refreshes running statistics, plots and
 writes files (folders, checkpoints, ``status.txt``, ``metrics.jsonl``).
 One rank computes what one process computes, bit for bit.
 
+A (data x model) grid (``dp`` a ``parallel.Mesh`` from ``make_mesh(n_data,
+n_model)``, the counterpart of the JAX ``Trainer(..., mesh=...)``; no CLI
+flag makes one, as none does in JAX) also shards frame height over
+'model': each step takes this rank's rows of its batch slice
+(``parallel.spatial_constraint``), the layers exchange halo rows and
+gather where they must (``parallel/mesh.py``), every rank draws the global
+noise from the one stream of rank 0 and keeps its part, and the
+gradients and metrics are summed over 'model' and averaged over 'data'.
+The step equals the one-process step to float32 rounding.
+
 A step runs in full float32 with TF32 off, forward and backward
 (``utils.float32_precision``), as the JAX package computes. It moves no
 running statistic (they update only in ``build`` and ``refresh_stats``),
@@ -53,6 +63,7 @@ import torch
 
 from ..flows.ddi import data_dependent_init
 from ..models import split_reconstruction
+from ..parallel.mesh import spatial_constraint
 from ..utils.numerics import NoiseSource, float32_precision
 from ..utils.profiling import StepTimer, trace
 from ..utils.running_stats import has_running_stats
@@ -150,8 +161,11 @@ class Trainer:
                                         tcfg.factor_lr, tcfg.min_lr)
         self.early = EarlyStopping(tcfg.patience_es)
         self.step_timer = StepTimer()
+        # data-parallel ranks draw their own slices from streams of their
+        # own; a grid's ranks all draw the global noise from rank 0's
+        own_stream = dp is not None and dp.n_model == 1
         self.generator = torch.Generator(device=self.device).manual_seed(
-            rank_seed(tcfg.seed, dp.rank if dp is not None else 0))
+            rank_seed(tcfg.seed, dp.rank if own_stream else 0))
         self.optimizer = None
         self._aux_iter = None
 
@@ -221,31 +235,36 @@ class Trainer:
     def train_step(self, batch, beta: float, lr: float,
                    noise: NoiseSource | None = None) -> dict:
         """One optimizer step on ``batch`` [B, T, H, W, C] in [0, 1] (this
-        rank's slice of the global batch where data-parallel). Returns loss,
-        kl, nll and bits (per dimension, averaged over the ranks) as 0-d
-        tensors on the device; reading them waits for the step."""
+        rank's slice of the global batch where data-parallel; on a grid,
+        whole frames, of which the step takes this rank's rows; ``noise``
+        then gives the global draws). Returns loss, kl, nll and bits (per
+        dimension, of the global batch) as 0-d tensors on the device;
+        reading them waits for the step."""
         tcfg, dp = self.tcfg, self.dp
         x = self._to_model_space(batch)
+        dims, t = x.shape[2] * x.shape[3] * x.shape[4], x.shape[1] - 1
+        noise = noise or NoiseSource(generator=self.generator)
+        if dp is not None:
+            x, noise = spatial_constraint(dp, x), dp.noise(noise)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
-        with float32_precision(), (dp.global_batch_stats() if dp is not None
+        with float32_precision(), (dp.active() if dp is not None
                                    else contextlib.nullcontext()):
-            out = self.model.loss(
-                x, noise or NoiseSource(generator=self.generator))
+            out = self.model.loss(x, noise)
             loss = out["nll"] + beta * out["kl_free_bits"]
             loss.backward()
-        if dp is not None:
-            dp.average_(p.grad for p in self.model.parameters() if p.grad is not None)
+        if dp is not None:  # summed over 'model', averaged over 'data'
+            dp.reduce_grads_(p.grad for p in self.model.parameters() if p.grad is not None)
         if tcfg.grad_clip > 0:
             clip_by_global_norm_([p.grad for p in self.model.parameters()
                                   if p.grad is not None], tcfg.grad_clip)
         self.optimizer.step()
-        dims = x.shape[2] * x.shape[3] * x.shape[4]
-        kl, nll = out["kl"].detach(), out["nll"].detach()
-        metrics = dict(loss=loss.detach(), kl=kl, nll=nll,
-                       bits=bits_per_dim(kl, nll, dims, x.shape[1] - 1))
-        return dp.mean_metrics(metrics) if dp is not None else metrics
+        metrics = dict(loss=loss.detach(), kl=out["kl"].detach(), nll=out["nll"].detach())
+        if dp is not None:
+            metrics = dp.reduce_metrics(metrics)
+        metrics["bits"] = bits_per_dim(metrics["kl"], metrics["nll"], dims, t)
+        return metrics
 
     def refresh_stats(self, noise: NoiseSource | None = None) -> None:
         """Update the running statistics (``model.stats_refresh``, TF32

@@ -9,6 +9,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import grid, own_rows
+
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
@@ -54,8 +56,27 @@ def split_feature(x: torch.Tensor, kind: str = "split"):
 
 
 def batch_reduce(x: torch.Tensor) -> torch.Tensor:
-    """Sum over everything but the leading (batch) axis -> [B]."""
-    return x.reshape(x.shape[0], -1).sum(-1)
+    """Sum over everything but the leading (batch) axis -> [B]; on a grid,
+    this rank's share of the sum over the whole map
+    (``parallel.mesh.Mesh.share``)."""
+    s = x.reshape(x.shape[0], -1).sum(-1)
+    g = grid()
+    return s if g is None else g.share(s, x)
+
+
+def expand_to_batch(p: torch.Tensor, batch: int) -> torch.Tensor:
+    """A learned [1, ...] state broadcast to ``batch``; on a grid, of a
+    map, this rank's rows (``parallel.mesh.own_rows``)."""
+    p = own_rows(p)
+    return p.expand((batch,) + p.shape[1:])
+
+
+def pixel_share(x: torch.Tensor):
+    """H·W of a map [B, H, W, C]; on a grid this rank's share of the whole
+    map's H·W (a float where the map is replicated)."""
+    n = x.shape[1] * x.shape[2]
+    g = grid()
+    return n if g is None else g.share(n, x)
 
 
 def normal_log_prob(x, mean, std):
@@ -85,17 +106,32 @@ def normal_sample(mean: torch.Tensor, std: torch.Tensor,
 
 def squeeze2d(x: torch.Tensor) -> torch.Tensor:
     """Space-to-depth [B,H,W,C] -> [B,H/2,W/2,4C], channel order
-    (c, dy, dx) with c slowest."""
+    (c, dy, dx) with c slowest. On a grid, of its own rows where their
+    count is even, else of the gathered frame."""
+    g = grid()
+    if g is not None:
+        x = g.reshard(x)
+        if g.sharded(x) and x.shape[1] % 2:
+            x = g.gather(x)
+        return g.reshard(_squeeze(x))
+    return _squeeze(x)
+
+
+def _squeeze(x):
     b, h, w, c = x.shape
     x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 5, 2, 4)
     return x.reshape(b, h // 2, w // 2, c * 4)
 
 
 def unsqueeze2d(x: torch.Tensor) -> torch.Tensor:
-    """Depth-to-space inverse of :func:`squeeze2d`."""
+    """Depth-to-space inverse of :func:`squeeze2d` (own rows on a grid)."""
+    g = grid()
+    if g is not None:
+        x = g.reshard(x)
     b, h, w, c = x.shape
     x = x.reshape(b, h, w, c // 4, 2, 2).permute(0, 1, 4, 2, 5, 3)
-    return x.reshape(b, h * 2, w * 2, c // 4)
+    x = x.reshape(b, h * 2, w * 2, c // 4)
+    return x if g is None else g.reshard(x)
 
 
 class NoiseSource:

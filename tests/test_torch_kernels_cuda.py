@@ -513,3 +513,44 @@ def test_glowstep_and_chain_function_gradients(cuda, kernel, ref, k, reverse):
     _grads_match(lambda i: kernel(i[0], i[1], GlowStepParams(*i[2:]), "realnvp", reverse),
                  lambda i: ref(i[0], i[1], GlowStepParams(*i[2:]), "realnvp", reverse),
                  [x, cond, *ps])
+
+
+# The three pointwise kernels at the local shapes a rank of chip_smoke.py's
+# 1x2 (data x model) grid gives them (phase 17): half the rows of each map
+# of rfn_mnist_production's B=30 step; the gates on the 2x2 latent's one
+# row, the coupling's z2 and the folded 1x1's x on each flow scale's
+# [30, hw/2, hw, C] rows.
+@pytest.mark.parametrize("offset", [0, 1])
+def test_gates_kernel_at_the_grid_shapes(cuda, offset):
+    gates = _randn(cuda, (30, 1, 2, 800), offset)
+    c = _randn(cuda, (30, 1, 2, 200), offset)
+    peeps = [_randn(cuda, (1, 1, 2, 200), offset, 0.1) for _ in range(3)]
+    got = convlstm_gates(gates, c, *peeps)
+    again = convlstm_gates(gates, c, *peeps)
+    torch.cuda.synchronize()
+    for a, a2, r in zip(got, again, convlstm_gates_ref(gates, c, *peeps)):
+        _close(a, r, 1e-5)
+        assert torch.equal(a, a2)
+
+
+def _grid_coupling_views(cuda, b, h, w, ch):
+    """The 'split' half of x and the 'cross' halves of the net's output,
+    [b, h, w, ch] each, as AffineCoupling gives them on a rank's rows."""
+    x = torch.randn(b, h, w, 2 * ch, generator=cuda, device="cuda")
+    net = 0.5 * torch.randn(b, h, w, 2 * ch, generator=cuda, device="cuda")
+    return x[..., ch:], net[..., 0::2], torch.tanh(net[..., 1::2])
+
+
+@pytest.mark.parametrize("level", range(5))
+def test_coupling_and_folded_1x1_kernels_at_the_grid_shapes(cuda, level):
+    hw, c = 32 >> level, 4 << level
+    z2, shift, s = _grid_coupling_views(cuda, 30, hw // 2, hw, c // 2)
+    for reverse in (False, True):
+        out, ld = coupling_transform(z2, shift, s, reverse)
+        out2, ld2 = coupling_transform(z2, shift, s, reverse)
+        torch.cuda.synchronize()
+        ref_out, ref_ld = coupling_transform_ref(z2, shift, s, reverse)
+        _close(out, ref_out, 1e-5)
+        _close(ld, ref_ld, 1e-4)
+        assert torch.equal(out, out2) and torch.equal(ld, ld2)
+    _ainv_agrees(cuda, 30 * (hw // 2) * hw, c, orthogonal=True)

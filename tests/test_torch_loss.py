@@ -17,6 +17,8 @@ float noise on both sides, so the atol never goes below 1e-6 of the
 largest gradient entry of the whole model.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ import torch
 
 import torch_parity_utils as U
 from torch_parity_utils import _two_torch_threads  # noqa: F401 (autouse fixture)
+from recurrent_flows_tpu.models import RFN as JRFN
 from recurrent_flows_tpu_torch.convert import tree_from_flax
 from recurrent_flows_tpu_torch.models import RFN
 from recurrent_flows_tpu_torch.utils import NoiseSource
@@ -58,6 +61,20 @@ def _config(**kw):
 
 
 _jax_results = {}
+_jax_variables = {}
+
+
+def _variables(cfg):
+    """``U.jax_rfn_variables(cfg)``: the JAX RFN and its perturbed
+    variables, the jitted init run once per parameter tree. The kernel
+    switches and free bits change neither the tree nor its init's values
+    (A, B, C and free_bits init to the same arrays), so those variants
+    share one init."""
+    key = dataclasses.replace(cfg, free_bits=0.0, glow=dataclasses.replace(
+        cfg.glow, coupling_impl=type(cfg.glow)().coupling_impl, chain_impl="off"))
+    if key not in _jax_variables:
+        _jax_variables[key] = U.jax_rfn_variables(cfg)[1]
+    return JRFN(cfg, remat=False), _jax_variables[key]
 
 
 def _jax_loss_and_grads(name):
@@ -65,7 +82,7 @@ def _jax_loss_and_grads(name):
     once per variant."""
     if name not in _jax_results:
         cfg = _config(**VARIANTS[name])
-        jm, v = U.jax_rfn_variables(cfg)
+        jm, v = _variables(cfg)
         x = np.random.default_rng(0).uniform(
             -0.5, 0.5, (B, T, IMG, IMG, U.CIN)).astype(np.float32)
         key = jax.random.key(3)
