@@ -47,8 +47,10 @@ configurations: A the preset as it is, B ``coupling_impl='fused'``, C
    on the CPU, same weights and noise: the loss pieces and a few named
    gradients;
 8. the five kernels against their plain versions at the shapes of
-   ``rfn_bair`` and ``rfn_kth`` (the folded 1x1 at 12-96 channels and at
-   128-256, with its gradients above 64; the coupling at rfn_bair's
+   ``rfn_bair`` and ``rfn_kth`` (the folded 1x1 at 12-96 channels, at
+   128-256, at the BAIR CLI step's 2x2x192, ``--L 6``'s 1x1x384 and the
+   request's 4x4x96, at 24-96 beside the compile-time instance on the same
+   inputs, with its gradients above 64; the coupling at rfn_bair's
    scales; the gates at h=256; the GlowStep kernels at rfn_bair's scale 3
    and rfn_kth's scales 2-3), times beside bounds, bit-for-bit repeats;
 9. ``rfn_bair`` at full width: build with data-dependent init, 3 requests
@@ -100,20 +102,23 @@ configurations: A the preset as it is, B ``coupling_impl='fused'``, C
     8, 5 + 10 frames, 5 resamples, the IW-ELBO with K=20), exact launches;
 14. the training CLIs (``cli.main_*.main``, in this process, under
     ``runs/chip_smoke_cli/``): ``main_rfn`` at its defaults (K=15, L=5,
-    with_skip, B=32, T=10) on Moving MNIST made on the card, 1 epoch of 2
-    steps (ms, peak GiB and exact launches per step), then
+    with_skip, B=32, T=10) on Moving MNIST made on the card, 1 epoch of 1
+    step (ms, peak GiB and exact launches per step), then
     ``--load_model`` (the loaded state bit for bit the saved one, the
     counter going on), the eval CLI on that checkpoint (one batch of 8, 2
     resamples, ``random3d``, exact launches per method); the kernels at the
     CLI's shapes against their plain versions (the gates at h = 256 on 2x2,
-    the coupling and the folded 1x1 at B=32, ``glowchain`` at K=15 on the
+    the coupling and the folded 1x1 at B=32, the folded 1x1 also at the five
+    scales of ``--choose_data bair`` (12-192 channels, with ``F.linear``'s
+    time and a bit-for-bit repeat), ``glowchain`` at K=15 on the
     checkpoint's parameters) and 3 requests of the checkpoint served with
     ``chain_impl='sample'``; one step of ``--choose_data shapes``; for
     ``kth`` and ``bair``, on PNG trees the phase writes with row filters 3
     and 4, one step through the PNG loader, then both splits' blobs built
     by ``cli.build_framecache.main`` and one step through ``FrameCache``
+    (shapes and KTH on 4 frames, BAIR at the defaults)
     (the loader's host ms per batch of both); ``main_srnn``, ``main_vrnn`` and
-    ``main_svg`` at their defaults (2 steps, exact gates launches);
+    ``main_svg`` at their defaults (1 step, exact gates launches);
     ``Trainer.train_epoch(1, profile_dir=...)`` (the Chrome trace parses
     and holds CUDA kernels); ``--multigpu`` in a one-process NCCL group
     against the same build and step without it, bit for bit. Every CLI
@@ -979,9 +984,18 @@ def check_opchecks(record) -> dict:
 BAIR_SCALES = [(32 >> l, 12 << l) for l in range(4)]
 BAIR_KERNEL_SCALES = [3]
 BAIR_N_COND, BAIR_TRAIN_BATCH = 2, 32
-# the folded 1x1 at widths no preset of this slice runs: gray at L = 6 (128),
-# RGB at L = 5 and gray at L = 7 (192, 256), on rows of 32·4·4
+# the folded 1x1 above 96 channels on rows of 32·4·4: gray at L = 6 (128),
+# RGB at L = 5 (192: main_rfn --choose_data bair at its defaults, whose
+# 2x2x192 scale phase 14 runs) and gray at L = 7 (256); then that CLI step's
+# own x [32·2·2, 192]
 WIDE_INVCONV = (128, 192, 256)
+BAIR_CLI_WIDE = (BAIR_TRAIN_BATCH * 4, 192)
+# main_rfn --choose_data bair --L 6: its last scale, x [32·1·1, 384], beyond
+# the 256 channels one stage holds (two stage buffers take turns)
+BAIR_L6_WIDE = (BAIR_TRAIN_BATCH, 384)
+# rfn_bair's serving request at its widest scale, x [8·4·4, 96]: the RGB widths
+# at this little work take the compile-time instance (ops.AINV_REGISTER_WORK)
+BAIR_REQUEST_96 = (BATCH * 16, 96)
 # (H = W, C, cond) of the GlowStep kernels' new shapes: rfn_bair scale 3,
 # rfn_kth scales 2-3
 NEW_GLOW_SHAPES = [(4, 96, 384), (8, 16, 384), (4, 32, 384)]
@@ -1006,16 +1020,20 @@ def glow_params(rnd, k: int, c: int, cc: int, u: int):
 
 def check_new_shapes(record):
     """Every kernel against its plain version at the shapes rfn_bair and
-    rfn_kth give it (and the folded 1x1 at 128-256 channels), with the
-    tolerances of phase 3, a bit-for-bit repeat, device times beside their
-    bounds, and the folded 1x1's gradients above 64 channels. Returns per
-    kernel the worst error and the times summed over its shapes."""
+    rfn_kth give it (and the folded 1x1 at 128-256 channels, at the BAIR
+    CLI step's 2x2x192, --L 6's 1x1x384 and the request's 4x4x96; at 24-96
+    the train step's x also timed in the compile-time instance), with the
+    tolerances of phase 3, a bit-for-bit repeat,
+    device times beside their bounds, and the folded 1x1's gradients above
+    64 channels. Returns per kernel the worst error and the times summed
+    over its shapes."""
     import torch.nn.functional as F
 
     from recurrent_flows_tpu_torch.ops import (
         GlowStepParams, actnorm_invconv, actnorm_invconv_ref, ainv_plan, convlstm_gates,
         convlstm_gates_ref, coupling_transform, coupling_transform_ref, gates_plan,
         glowchain, glowchain_ref, glowstep, glowstep_ref, launch_plan)
+    from recurrent_flows_tpu_torch.ops.fused import ainv_launch_plan, ainv_row_plan
 
     g = torch.Generator(device="cuda").manual_seed(11)
     rnd = lambda *s, scale=1.0: torch.randn(s, generator=g, device="cuda") * scale
@@ -1031,17 +1049,21 @@ def check_new_shapes(record):
             t["library_ms"] = (t["library_ms"] or 0.0) + row["library_ms"]
         record.setdefault(name, []).append(row)
 
-    # the folded 1x1: x [32·H·W, C] at rfn_bair's four scales, then 128-256
+    # the folded 1x1: x [32·H·W, C] at rfn_bair's four scales, then 128-256,
+    # the BAIR CLI step's 2x2x192, --L 6's 1x1x384 and the request's 4x4x96;
+    # at 24, 48 and 96 the train step's x also through the compile-time
+    # instance (vec 1), the design ainv_plan leaves there at little work
     cases = [(BAIR_TRAIN_BATCH * hw * hw, c) for hw, c in BAIR_SCALES]
     cases += [(BAIR_TRAIN_BATCH * 16, c) for c in WIDE_INVCONV]
+    cases += [BAIR_CLI_WIDE, BAIR_L6_WIDE, BAIR_REQUEST_96]
     for rows, c in cases:
         x = rnd(rows, c)
         bias, logs = rnd(c, scale=0.3), rnd(c, scale=0.3)
         w = torch.linalg.qr(rnd(c, c))[0].contiguous()  # orthogonal, as InvConv's init
         y = actnorm_invconv(x, bias, logs, w)
         torch.cuda.synchronize()
-        e = check_elementwise(f"actnorm_invconv [{rows}, {c}]", (y,),
-                              (actnorm_invconv_ref(x, bias, logs, w),), (TOL_INVCONV,))
+        ref = actnorm_invconv_ref(x, bias, logs, w)
+        e = check_elementwise(f"actnorm_invconv [{rows}, {c}]", (y,), (ref,), (TOL_INVCONV,))
         check_repeats(f"actnorm_invconv [{rows}, {c}]",
                       lambda: (actnorm_invconv(x, bias, logs, w),))
         check_elementwise(f"F.linear [{rows}, {c}]",
@@ -1052,9 +1074,17 @@ def check_new_shapes(record):
                    plain_ms=cuda_ms(lambda: actnorm_invconv_ref(x, bias, logs, w)),
                    n_bytes=nbytes(x, bias, logs, w, x), flops=2 * x.numel() * c + 2 * x.numel())
         row.update(bound(row["n_bytes"], row["flops"]))
+        also = ""
+        if c in (24, 48, 96) and plan.vec == 2:
+            vec1 = ainv_row_plan(rows, c, 1)
+            row["vec1_err"] = check_elementwise(
+                f"actnorm_invconv [{rows}, {c}] in vec 1",
+                (ainv_launch_plan(vec1, x, bias, logs, w),), (ref,), (TOL_INVCONV,))
+            row["vec1_ms"] = small_ms(lambda: ainv_launch_plan(vec1, x, bias, logs, w))
+            also = f" (vec 1 {row['vec1_ms']:.5f})"
         add("actnorm_invconv", row, e)
         print(f"actnorm_invconv x[{rows}, {c}]: plan vec {plan.vec}, {plan.blocks} blocks of "
-              f"{plan.threads} threads, err {e:.3e}, {row['ms']:.5f} ms, plain "
+              f"{plan.threads} threads, err {e:.3e}, {row['ms']:.5f} ms{also}, plain "
               f"{row['plain_ms']:.5f}, F.linear {row['library_ms']:.5f}, bound "
               f"{row['bound_ms']:.6f} ({row['bound_by']})")
     grads = {}
@@ -2514,7 +2544,10 @@ def evaluation(rng, record) -> dict:
 # T=10, chain_impl 'off' (no CLI flag sets it): a step runs the module path
 # at every scale, and so does the rollout of the eval CLI on its checkpoint
 CLI_DIR = ROOT / "runs" / "chip_smoke_cli"
-CLI_EPOCH = ["--n_epochs", "1", "--steps_per_epoch", "2"]
+CLI_EPOCH = ["--n_epochs", "1", "--steps_per_epoch", "1"]
+# the shapes and KTH steps on 4 frames (their data paths; the BAIR steps keep
+# the defaults, whose 2x2x192 scale the folded 1x1's tiles take)
+CLI_SHORT = ["--n_frames", "4"]
 CLI_EVAL_ARGS = ["--n_batches", "1", "--batch_size", "8", "--resamples", "2",
                  "--no-debug_plot", "--fvd_embedder", "random3d", "--device", "cuda"]
 # the PNG trees the phase writes (64x64 frames, gray for KTH, RGB for BAIR)
@@ -2641,10 +2674,16 @@ def write_png_tree(choice, root, rng, size: int):
                       img[..., 0] if ch == 1 else img, filters=(3, 4))
 
 
+# (H = W, C) of x at the five flow scales of main_rfn --choose_data bair at
+# its defaults (L=5, x_channels 3)
+BAIR_CLI_SCALES = [(32 >> l, 12 << l) for l in range(5)]
+
+
 def check_cli_kernels(model, record) -> dict:
     """The gates, the coupling and the folded 1x1 at the shapes the CLI's
     RFN gives them (the gates at h = 256 on 2x2, new; the flow's five
-    scales at B=32 forward, the coupling also at B=8 in reverse), and the
+    scales at B=32 forward, the coupling also at B=8 in reverse; the folded
+    1x1 also at the five of its BAIR step, ``BAIR_CLI_SCALES``), and the
     glowchain kernel at K=15 on the checkpoint's own stacked parameters at
     the scales its gate takes at B=8 (1-4; the with_skip conditions widen
     cond to 64-384), each against its plain version within the tolerances
@@ -2688,13 +2727,20 @@ def check_cli_kernels(model, record) -> dict:
             ms=small_ms(lambda: coupling_transform(z2, shift, s, rev)),
             plain_ms=small_ms(lambda: coupling_transform_ref(z2, shift, s, rev)),
             **bound(nbytes(z2, shift, s, z2) + 4 * shape[0], 4 * z2.numel())))
-    for hw, c in scales:
+    # the folded 1x1 at the gray scales, then at the five of main_rfn
+    # --choose_data bair (x_channels 3: 32x32x12 .. 2x2x192, the last in the
+    # tile design's widest regime)
+    for hw, c in scales + BAIR_CLI_SCALES:
         x = rnd(32 * hw * hw, c)
         bias, logs = rnd(c, scale=0.3), rnd(c, scale=0.3)
         w = torch.linalg.qr(rnd(c, c))[0].contiguous()
-        e = check_elementwise(f"actnorm_invconv [{x.shape[0]}, {c}]",
-                              (actnorm_invconv(x, bias, logs, w),),
+        name = f"actnorm_invconv [{x.shape[0]}, {c}]"
+        n = actnorm_invconv.launches
+        e = check_elementwise(name, (actnorm_invconv(x, bias, logs, w),),
                               (actnorm_invconv_ref(x, bias, logs, w),), (TOL_INVCONV,))
+        if actnorm_invconv.launches != n + 1:
+            raise AssertionError(f"{name}: {actnorm_invconv.launches - n} launches in a call")
+        check_repeats(name, lambda: (actnorm_invconv(x, bias, logs, w),))
         times = ainv_times(actnorm_invconv, x, bias, logs, w)
         add("actnorm_invconv", dict(
             shape=list(x.shape), err=e, ms=times["ms"], library_ms=times["library_ms"],
@@ -2832,7 +2878,7 @@ def training_clis(rng, record) -> tuple:
         "--path", str(rfn_dir)], want, record)
     status = (rfn_dir / "model_folder" / "status.txt").read_text().splitlines()
     meta = json.loads((rfn_dir / "model_folder" / "last" / "meta.json").read_text())
-    if (first.counter, meta["counter"]) != (2, 2) or not status[0].startswith("data_source "):
+    if (first.counter, meta["counter"]) != (1, 1) or not status[0].startswith("data_source "):
         raise AssertionError(f"cli_rfn: counter {first.counter}, saved {meta['counter']}, "
                              f"status {status}")
     n_params = sum(p.numel() for p in first.model.parameters())
@@ -2847,11 +2893,11 @@ def training_clis(rng, record) -> tuple:
     unequal = [k for k in saved_model if not torch.equal(saved_model[k], got["model"][k])]
     unequal += [f"adam {i} {k}" for i in saved_adam for k in saved_adam[i]
                 if not torch.equal(saved_adam[i][k].cpu(), got["adam"][i][k].cpu())]
-    if unequal or got["counter"] != 2 or resumed.counter != 4 or resumed.epoch_i != 2:
+    if unequal or got["counter"] != 1 or resumed.counter != 2 or resumed.epoch_i != 2:
         raise AssertionError(f"--load_model: loaded state differs in {unequal[:8]}; counter "
                              f"{got['counter']} -> {resumed.counter}")
     print(f"--load_model: {len(saved_model)} tensors and {len(saved_adam)} Adam states "
-          f"bit-equal, counter 2 -> {resumed.counter}; {n_params} parameters")
+          f"bit-equal, counter 1 -> {resumed.counter}; {n_params} parameters")
     record["cli_rfn"]["parameters"] = n_params
     del resumed, saved_model, saved_adam, timers
     torch.cuda.empty_cache()
@@ -2907,20 +2953,22 @@ def training_clis(rng, record) -> tuple:
     # PNG loaders, then through the frame cache's blobs, which
     # cli.build_framecache writes from the same trees
     one = ["--n_epochs", "1", "--steps_per_epoch", "1"]
-    _, paths["cli_shapes"], _ = run_cli("cli_shapes", main_rfn, one + [
-        "--choose_data", "shapes", "--path", str(CLI_DIR / "shapes")], want, record)
+    want_short = train_launches(mcfg, "A", True, int(CLI_SHORT[1]) - 1, ())
+    _, paths["cli_shapes"], _ = run_cli("cli_shapes", main_rfn, one + CLI_SHORT + [
+        "--choose_data", "shapes", "--path", str(CLI_DIR / "shapes")], want_short, record)
     for choice in ("kth", "bair"):
         root = CLI_DIR / f"{choice}_data"
         write_png_tree(choice, root, rng, img)
-        argv = one + ["--choose_data", choice, "--data_root", str(root)]
+        short, want_c = (CLI_SHORT, want_short) if choice == "kth" else ([], want)
+        argv = one + short + ["--choose_data", choice, "--data_root", str(root)]
         _, paths[f"cli_{choice}_png"], _ = run_cli(f"cli_{choice}_png", main_rfn, argv + [
-            "--path", str(CLI_DIR / f"{choice}_png")], want, record)
+            "--path", str(CLI_DIR / f"{choice}_png")], want_c, record)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             blobs = build_framecache.main(["--dataset", choice, "--data_root", str(root)])
         build_s = time.perf_counter() - t0
         _, paths[f"cli_{choice}"], _ = run_cli(f"cli_{choice}", main_rfn, argv + [
-            "--path", str(CLI_DIR / choice)], want, record)
+            "--path", str(CLI_DIR / choice)], want_c, record)
         kinds = (record[f"cli_{choice}_png"]["data"], record[f"cli_{choice}"]["data"])
         if kinds != ({"kth": "KTH", "bair": "PushDataset"}[choice], "FrameCache"):
             raise AssertionError(f"cli_{choice}: the steps read {kinds}, expected the PNG "
@@ -4104,6 +4152,18 @@ def spatial_grid(record, card: str) -> dict:
     return paths, shapes
 
 
+PHASES_LOG = ROOT / "chiprun_out" / "chip_smoke_phases.log"
+
+
+def progress(line: str) -> None:
+    """Print a phase's end, and append it to ``PHASES_LOG``: the record of
+    where a run's time went that a run cut off at its time limit still has."""
+    print(line, flush=True)
+    PHASES_LOG.parent.mkdir(exist_ok=True)
+    with PHASES_LOG.open("a") as f:
+        f.write(line + "\n")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -4115,6 +4175,7 @@ def main() -> None:
 
     t_start = time.perf_counter()
     card = card_info()
+    PHASES_LOG.unlink(missing_ok=True)
     print(f"card: {card}")
     record = dict(card=card, device=torch.cuda.get_device_name(0),
                   torch=torch.__version__, cuda=torch.version.cuda,
@@ -4127,7 +4188,7 @@ def main() -> None:
     t0 = time.perf_counter()
     built = build_all()
     record["build_s"] = {name: secs for name, (_, secs) in built.items()}
-    print(f"build: {record['build_s']} s, {time.perf_counter() - t0:.1f} s in all")
+    progress(f"build: {record['build_s']} s, {time.perf_counter() - t0:.1f} s in all")
 
     # the serving model: production widths, chain_impl='sample', seeded
     mcfg, tcfg = rfn_mnist_production()
@@ -4143,7 +4204,7 @@ def main() -> None:
         kernels = check_kernels(model, record)
         record["gradient_err"] = check_gradients(model)
         check_opchecks(record)
-    print(f"phase 3 done at {time.perf_counter() - t_start:.0f} s")
+    progress(f"phase 3 done at {time.perf_counter() - t_start:.0f} s")
 
     rng = np.random.default_rng(0)
     paths = {"mnist_serve": serve(model, mcfg, tcfg, rng, record, card,
@@ -4151,60 +4212,60 @@ def main() -> None:
     rollout_card_vs_cpu(model, rng, record)
     del model
     torch.cuda.empty_cache()
-    print(f"serving done at {time.perf_counter() - t_start:.0f} s")
+    progress(f"serving done at {time.perf_counter() - t_start:.0f} s")
     paths["mnist_train"] = train(mcfg, tcfg, rng, record, card, range(1, mcfg.L))
-    print(f"training done at {time.perf_counter() - t_start:.0f} s")
+    progress(f"training done at {time.perf_counter() - t_start:.0f} s")
     train_card_vs_cpu(mcfg, tcfg, rng, record, *MNIST_GRADS)
 
     # the kernels at the shapes of rfn_bair and rfn_kth, then both models
     record["new_shapes"] = {}
     with float32_precision():
         new = check_new_shapes(record["new_shapes"])
-    print(f"new shapes done at {time.perf_counter() - t_start:.0f} s")
+    progress(f"new shapes done at {time.perf_counter() - t_start:.0f} s")
     record["bair"] = {}
     paths.update(bair(rng, record["bair"], card))
-    print(f"rfn_bair done at {time.perf_counter() - t_start:.0f} s")
+    progress(f"rfn_bair done at {time.perf_counter() - t_start:.0f} s")
     record["kth_batchnorm"] = {}
     paths.update(kth_batchnorm(rng, record["kth_batchnorm"], card))
-    print(f"rfn_kth batchnorm variant done at {time.perf_counter() - t_start:.0f} s")
+    progress(f"rfn_kth batchnorm variant done at {time.perf_counter() - t_start:.0f} s")
     record["lifecycle"] = {}
     paths.update(lifecycle(rng, record["lifecycle"], card))
-    print(f"lifecycle done at {time.perf_counter() - t_start:.0f} s")
+    progress(f"lifecycle done at {time.perf_counter() - t_start:.0f} s")
     record["families"] = {}
     with float32_precision():
         fam_gates = check_family_gates(record["families"])
     paths.update(families(record["families"]))
-    print(f"families done at {time.perf_counter() - t_start:.0f} s")
+    progress(f"families done at {time.perf_counter() - t_start:.0f} s")
     record["evaluation"] = {}
     t0 = time.perf_counter()
     paths.update(evaluation(rng, record["evaluation"]))
     record["evaluation"]["phase_s"] = time.perf_counter() - t0
-    print(f"evaluation done at {time.perf_counter() - t_start:.0f} s "
+    progress(f"evaluation done at {time.perf_counter() - t_start:.0f} s "
           f"(phase 13: {record['evaluation']['phase_s']:.0f} s)")
     record["training_clis"] = {}
     t0 = time.perf_counter()
     cli_paths, cli_checks = training_clis(rng, record["training_clis"])
     paths.update(cli_paths)
     record["training_clis"]["phase_s"] = time.perf_counter() - t0
-    print(f"training CLIs done at {time.perf_counter() - t_start:.0f} s "
+    progress(f"training CLIs done at {time.perf_counter() - t_start:.0f} s "
           f"(phase 14: {record['training_clis']['phase_s']:.0f} s)")
     record["export"] = {}
     t0 = time.perf_counter()
     paths.update(export_phase(record["export"]))
     record["export"]["phase_s"] = time.perf_counter() - t0
-    print(f"export done at {time.perf_counter() - t_start:.0f} s "
+    progress(f"export done at {time.perf_counter() - t_start:.0f} s "
           f"(phase 15: {record['export']['phase_s']:.0f} s)")
     record["standalone"] = {}
     t0 = time.perf_counter()
     standalone_paths, standalone_shapes = standalone(rng, record["standalone"])
     paths.update(standalone_paths)
     record["standalone"]["phase_s"] = time.perf_counter() - t0
-    print(f"standalone models done at {time.perf_counter() - t_start:.0f} s "
+    progress(f"standalone models done at {time.perf_counter() - t_start:.0f} s "
           f"(phase 16: {record['standalone']['phase_s']:.0f} s)")
     record["grid"] = {}
     grid_paths, grid_shapes = spatial_grid(record["grid"], card)
     paths.update(grid_paths)
-    print(f"spatial grid done at {time.perf_counter() - t_start:.0f} s "
+    progress(f"spatial grid done at {time.perf_counter() - t_start:.0f} s "
           f"(phase 17: {record['grid']['phase_s']:.0f} s)")
 
     launches = {name: sum(p[name] for p in paths.values()) for name in SOURCES}

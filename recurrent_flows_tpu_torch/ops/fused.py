@@ -13,8 +13,10 @@ Replaces ``recurrent_flows_tpu/ops/pallas/fused.py``:
 * ``actnorm_invconv`` replaces ``_actnorm_invconv_pallas``
   (``fused.py:166``): ``((x + b)·e^logs)·Wᵀ`` over rows, the step actnorm
   folded into the invertible 1x1, in CUDA C++ (``csrc/actnorm_invconv.cu``),
-  at any C (W streamed through shared memory in tiles above 64 channels);
-  :func:`ainv_plan` decides its geometry.
+  at any C (compile-time instances with the rows in registers at the gray
+  widths and at little work; output tiles staged in shared memory at the
+  RGB train step's widths and above 64 channels); :func:`ainv_plan` decides
+  its geometry.
 * ``convlstm_gates`` replaces ``_gates_pallas`` (``fused.py:257``): the
   peephole ConvLSTM update from the fused gate-conv output, in CUDA C++
   (``csrc/convlstm_gates.cu``). One elementwise pass with no reduction
@@ -294,20 +296,75 @@ convlstm_gates.launches = 0
 MAX_INVCONV_CHANNELS = 64  # the widest C the run-time-width instance takes (vec 0)
 AINV_WIDTHS = (4, 8, 16, 32, 64)  # compile-time widths, the gray presets'
 AINV_RGB_WIDTHS = (12, 24, 48, 96)  # compile-time widths, the RGB preset's
+# the RGB widths 24-96 take vec 1 up to this much work (rows · C²), the
+# tiles above it: the crossover measured on the H100 (PERF.md)
+AINV_REGISTER_WORK = 1 << 22
 AINV_MAX_THREADS = 256
-AINV_WIDE_ROWS, AINV_WIDE_COLS = 32, 32  # the tiled regime's output tile, at most
+# the tile design (vec 2): its output tiles at most, the channels of one
+# stage at most, and the shared memory a block may hold on the H100
+# (csrc/actnorm_invconv.cu)
+AINV_TILE_ROWS, AINV_TILE_COLS = 64, 64
+AINV_TILE_LANES = 8
+AINV_TILE_MAX_K = 256
+AINV_MAX_SMEM = 227 * 1024 - 64  # less the kernel's static mbarriers
 N_SMS = 132  # streaming multiprocessors of one H100 SXM
 
 
 class AinvPlan(NamedTuple):
     """The launch geometry of ``csrc/actnorm_invconv.cu`` on x [rows, C]."""
 
-    vec: int  # 1: the instance of compile-time width C, 16-byte loads; 0: run-time C <= 64; 2: tiled
-    lanes: int  # threads that share one 4-wide output vector (1 where vec is 0 or 2)
-    groups: int  # 4-wide output vectors of a row per block, a power-of-2 divisor of C/4 (0: vec 0)
+    vec: int  # 1: the instance of compile-time width C, 16-byte loads; 0: run-time C <= 64; 2: tiles
+    lanes: int  # threads that share one output's C-sum (1 where vec is 0)
+    groups: int  # vec 1: 4-wide output vectors of a row per block; 2: outputs / 4; 0: vec 0
     rows_per_block: int  # block (i, j) takes rows [i·rows_per_block, ...), vectors [j·groups, ...)
-    threads: int  # rows_per_block · groups · lanes (rows_per_block · C where vec is 0)
+    threads: int  # rows_per_block · groups · lanes (rows_per_block · C where vec is 0; / 4 where 2)
     blocks: int  # over both grid axes
+    k_stage: int = 0  # vec 2: channels staged at a time, a multiple of 4 · lanes
+
+
+def ainv_tile_smem(tm: int, tn: int, lanes: int, k_stage: int, c: int) -> int:
+    """Bytes of dynamic shared memory of a tile, as ``tile_smem_floats`` in
+    ``csrc/actnorm_invconv.cu``: one stage buffer (two where a stage holds
+    less than c) of tm x rows and tn W rows, ``k_stage`` channels each at a
+    stride of an odd number of 4 floats, and the stage's scales and shifts;
+    the lanes' partial sums reuse it."""
+    stride = k_stage + (0 if (k_stage // 4) % 2 else 4)
+    stage = (2 if k_stage < c else 1) * (tm + tn) * stride + 2 * k_stage
+    return 4 * max(stage, lanes * tm * tn if lanes > 1 else 0)
+
+
+def _tile_plan(rows: int, c: int) -> AinvPlan:
+    n_vec = _cdiv(c, 4)
+    # up to 64 channels a block is short (a few thousand clocks): two share an SM
+    per_sm = 2 if c <= MAX_INVCONV_CHANNELS else 1
+    best = None
+    for tm in range(4, AINV_TILE_ROWS + 1, 4):
+        for groups in range(1, min(n_vec, AINV_TILE_COLS // 4) + 1):
+            tn = 4 * groups
+            blocks = _cdiv(rows, tm) * _cdiv(n_vec, groups)
+            # an SM's FMAs at 128 a clock and bytes of x and W at 64 a clock,
+            # over its blocks
+            cost = (_cdiv(blocks, per_sm * N_SMS) * per_sm
+                    * (tm * tn * c / 128 + (tm + tn) * c / 16))
+            key = (cost, blocks, -tn)
+            if best is None or key < best[0]:
+                best = (key, tm, groups, blocks)
+    _, tm, groups, blocks = best
+    cells = tm // 4 * groups  # 4x4 register tiles of a lane
+    # a lane keeps at least 12 channels (24 above 64, where the partial sums
+    # of a larger tile cost more to add)
+    per_lane = 12 if per_sm == 2 else 24
+    lanes = 1
+    while (cells * lanes * 2 <= AINV_MAX_THREADS and lanes < AINV_TILE_LANES
+           and min(c, AINV_TILE_MAX_K) // (2 * lanes) >= per_lane):
+        lanes *= 2
+    step = 4 * lanes
+    k_stage = _cdiv(c, step) * step
+    if k_stage > AINV_TILE_MAX_K:  # two buffers take turns
+        k_stage = AINV_TILE_MAX_K // step * step
+        while ainv_tile_smem(tm, 4 * groups, lanes, k_stage, c) > AINV_MAX_SMEM:
+            k_stage -= step
+    return AinvPlan(2, lanes, groups, tm, cells * lanes, blocks, k_stage)
 
 
 def ainv_plan(rows: int, c: int, *, aligned: bool = True) -> AinvPlan:
@@ -315,32 +372,42 @@ def ainv_plan(rows: int, c: int, *, aligned: bool = True) -> AinvPlan:
     pure function of the shapes (and of whether the pointers are 16-byte
     aligned).
 
-    At c in ``AINV_WIDTHS`` or ``AINV_RGB_WIDTHS`` (and aligned pointers)
-    a thread computes a 4-wide output vector of one row; from c = 32 the
+    At c in ``AINV_WIDTHS`` (the gray presets' 4-64) and at 12 (aligned
+    pointers), and at the other RGB widths 24, 48 and 96 up to
+    ``AINV_REGISTER_WORK`` (rows · c², the serving request's scales), the
+    compile-time instance (vec 1): a thread computes a 4-wide output vector
+    of one row from the row and W's rows in registers; from c = 32 the
     c-term sum of each output is split over ``lanes`` = 4 threads, and a
     block computes ``groups`` output vectors of its rows: 2 where they
-    divide c/4 (8 outputs, so it reads 8 rows of W, not all c), else 1.
-    Any other c <= 64 takes the run-time-width instance, one thread per
-    output. The blocks are at most ``N_SMS``, one per SM, of at most
-    ``AINV_MAX_THREADS`` threads. This plan was the fastest or within 0.05
-    µs of it at every scale of ``rfn_mnist_production`` on the H100
-    (``PERF.md``); ``csrc/actnorm_invconv.cu`` compiles only the lanes it
-    picks.
+    divide c/4, else 1. Any other c <= 64 (and unaligned pointers) takes the
+    run-time-width instance, one thread per output. The blocks are at most
+    ``N_SMS``, one per SM, of at most ``AINV_MAX_THREADS`` threads.
 
-    At any other c above 64 (aligned or not) the tiled regime (vec 2): a
-    block computes an output tile of ``rows_per_block`` (at most
-    ``AINV_WIDE_ROWS``) rows by ``AINV_WIDE_COLS`` outputs, one 4-wide
-    vector per thread (``groups`` = 8), streaming x and W through shared
-    memory 32 channels at a time; the rows per block shrink until the tiles
-    reach ``N_SMS`` blocks, where the rows allow."""
+    At 24, 48 and 96 above that work, and at any c above 64, the tile design
+    (vec 2): a block computes an output tile of ``rows_per_block`` rows by
+    4·``groups`` outputs, each thread a 4x4 register tile, and ``lanes``
+    threads share each output's c-sum. The tile is the one that minimises a
+    model of an SM's time (FMAs at 128 a clock, bytes of x and W at 64 a
+    clock, over the SM's blocks; two blocks an SM up to 64 channels); the
+    lanes double, to at most ``AINV_TILE_LANES``, while the block keeps
+    within ``AINV_MAX_THREADS`` threads and a lane keeps at least 12
+    channels (24 above 64); a stage takes ``k_stage`` channels, all of c up
+    to ``AINV_TILE_MAX_K``. ``scripts/torch_ainv_tiles.py`` times every tile
+    the kernel takes beside this choice."""
     if rows < 1 or c < 1:
         raise ValueError(f"ainv_plan: bad shape (rows={rows}, C={c}); the kernel "
                          "takes at least 1 row and 1 channel")
-    vec = int(aligned and c in AINV_WIDTHS + AINV_RGB_WIDTHS)
-    if not vec and c > MAX_INVCONV_CHANNELS:
-        groups, col_blocks = AINV_WIDE_COLS // 4, _cdiv(c, AINV_WIDE_COLS)
-        rpb = max(1, min(AINV_WIDE_ROWS, _cdiv(rows * col_blocks, N_SMS)))
-        return AinvPlan(2, 1, groups, rpb, rpb * groups, _cdiv(rows, rpb) * col_blocks)
+    in_registers = aligned and c in AINV_RGB_WIDTHS and (c == 12 or rows * c * c
+                                                         <= AINV_REGISTER_WORK)
+    if not in_registers and (c > MAX_INVCONV_CHANNELS or (aligned and c in (24, 48))):
+        return _tile_plan(rows, c)
+    return ainv_row_plan(rows, c, int(aligned and c in AINV_WIDTHS + AINV_RGB_WIDTHS))
+
+
+def ainv_row_plan(rows: int, c: int, vec: int) -> AinvPlan:
+    """The geometry :func:`ainv_plan` gives x [rows, c] in the compile-time
+    instance (vec 1, c in ``AINV_WIDTHS`` or ``AINV_RGB_WIDTHS``) or the
+    run-time-width one (vec 0, c <= 64), whatever the work."""
     if not vec:
         lanes, groups, col_blocks, per_row = 1, 0, 1, c
     else:
@@ -350,22 +417,31 @@ def ainv_plan(rows: int, c: int, *, aligned: bool = True) -> AinvPlan:
     return AinvPlan(vec, lanes, groups, rpb, rpb * per_row, _cdiv(rows, rpb) * col_blocks)
 
 
-_AINV_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_AINV_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def _ainv_launch(x, bias, logs, w):
+def ainv_launch_plan(plan: AinvPlan, x, bias, logs, w, y=None):
+    """The kernel on x [rows, C] (contiguous, on the card) under ``plan``
+    into ``y`` (a new tensor by default), uncounted: the launch of
+    :func:`actnorm_invconv` and a measurement's way to time a plan that
+    :func:`ainv_plan` does not pick."""
     lib = _load("actnorm_invconv", _AINV_ARGS)
     c = x.shape[-1]
-    rows = x.numel() // c
-    y = torch.empty_like(x)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, y))
-    plan = ainv_plan(rows, c, aligned=aligned)
+    y = torch.empty_like(x) if y is None else y
     with torch.cuda.device(x.device):
         err = lib.actnorm_invconv_launch(
             x.data_ptr(), bias.data_ptr(), logs.data_ptr(), w.data_ptr(),
-            y.data_ptr(), rows, c, plan.vec, plan.lanes, plan.rows_per_block,
-            plan.groups, torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), x.numel() // c, c, plan.vec, plan.lanes, plan.rows_per_block,
+            plan.groups, plan.k_stage, torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, "actnorm_invconv", err)
+    return y
+
+
+def _ainv_launch(x, bias, logs, w):
+    c = x.shape[-1]
+    y = torch.empty_like(x)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, y))
+    ainv_launch_plan(ainv_plan(x.numel() // c, c, aligned=aligned), x, bias, logs, w, y)
     actnorm_invconv.launches += 1
     return y
 

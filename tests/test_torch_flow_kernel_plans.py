@@ -21,29 +21,90 @@ from recurrent_flows_tpu_torch.flows import modules as tmod
 from recurrent_flows_tpu_torch.ops import (AinvPlan, CouplingPlan, ainv_plan,
                                            coupling_mode, coupling_plan, coupling_transform,
                                            nhwc_view)
-from recurrent_flows_tpu_torch.ops.fused import (AINV_MAX_THREADS, AINV_RGB_WIDTHS, AINV_WIDTHS,
-                                                N_SMS)
+from recurrent_flows_tpu_torch.ops.fused import (AINV_MAX_SMEM, AINV_MAX_THREADS,
+                                                AINV_REGISTER_WORK, AINV_RGB_WIDTHS,
+                                                AINV_TILE_COLS, AINV_TILE_LANES, AINV_TILE_MAX_K,
+                                                AINV_TILE_ROWS, AINV_WIDTHS, N_SMS,
+                                                ainv_tile_smem)
 
 # x [B·H·W, C] of the folded actnorm + 1x1 at scales 0-4 of rfn_mnist_production
 SCALES = [(32 >> l, 4 << l) for l in range(5)]
 BATCHES = [30, 1, 7, 33]  # the train step's, then ragged ones
 
 
+def _ainv_tile_terms(plan: AinvPlan, rows: int, c: int) -> np.ndarray:
+    """``_ainv_terms`` of the tile design, from ``ainv_kernel_tile``'s index
+    math. Thread t (cg = t mod ng, rg = t // ng mod tm/4, lane = t //
+    (ng·tm/4), ng = tn/4 = groups) sums into register (i, j) of its 4x4 tile
+    the products of x's tile row rg + i·tm/4 (``xp + i·rgs·stride``) and W's
+    tile row cg + j·ng (``wp + j·ng·stride``) over the channels
+    [s + lane·ks, s + (lane+1)·ks) of every stage s = 0, k_stage, ... below c
+    (ks = k_stage / lanes). With one lane it stores register (i, j) at tile
+    row rg + i·tm/4, output cg + j·ng. With more it writes the register to
+    the partials at [lane, rg + i·tm/4, cg + j·ng], a fixed tree adds lane
+    l + h into l for h = lanes/2, ..., 1, and thread v stores 16-byte piece v
+    of lane 0's partials (floats 4v .. 4v+3 of [tm, tn]) at tile row v // ng,
+    outputs 4·(v mod ng) .. +3.
+    Block (bx, by) places its tile at row bx·tm, output by·tn, and stores
+    only inside y. Each partial, each sum of the tree and each store must
+    take the registers of its own row and output, and every output is
+    stored exactly once."""
+    tm, ng, lanes = plan.rows_per_block, plan.groups, plan.lanes
+    tn, rgs = 4 * ng, tm // 4
+    t = np.arange(plan.threads)
+    cg, rg, lane = t % ng, t // ng % rgs, t // (ng * rgs)
+    assert lane.max() == lanes - 1 and plan.k_stage % (4 * lanes) == 0
+    ks = plan.k_stage // lanes
+    ij = np.zeros((plan.threads, 4, 4), np.int64)
+    i, j = ij + np.arange(4)[:, None], ij + np.arange(4)[None, :]
+    lane, rg, cg = (np.broadcast_to(a[:, None, None], ij.shape) for a in (lane, rg, cg))
+    x_row, w_row = rg + i * rgs, cg + j * ng  # what register (i, j) sums
+    # the tile position each register goes to: a partial, or with one lane
+    # its store
+    at_m, at_n = rg + i * rgs, cg + j * ng
+    held = np.full((lanes, tm, tn, 2), -1)
+    assert len(set(zip(lane.ravel(), at_m.ravel(), at_n.ravel()))) == lane.size
+    held[lane, at_m, at_n] = np.stack([x_row, w_row], -1)
+    # each partial's channels, counted by a difference along c'
+    diff = np.zeros((lanes, tm, tn, c + 1), np.int16)
+    for s in range(0, c, plan.k_stage):
+        k0, k1 = np.minimum(s + lane * ks, c), np.minimum(s + (lane + 1) * ks, c)
+        np.add.at(diff, (lane, at_m, at_n, k0), 1)
+        np.add.at(diff, (lane, at_m, at_n, k1), -1)
+    part = np.cumsum(diff, axis=3, dtype=np.int16)[..., :c]
+    h = lanes // 2
+    while h >= 1:
+        assert (held[:h] == held[h:2 * h]).all()
+        part[:h] += part[h:2 * h]
+        h //= 2
+    src_m, src_n = at_m, at_n  # what each store takes
+    if lanes > 1:  # piece v: floats 4v .. 4v+3 of lane 0's partials
+        v, q = np.arange(tm * tn // 4).repeat(4), np.tile(np.arange(4), tm * tn // 4)
+        src_m, src_n = divmod(4 * v + q, tn)
+        at_m, at_n = v // ng, 4 * (v % ng) + q
+    src_m, src_n, at_m, at_n = (a.ravel() for a in (src_m, src_n, at_m, at_n))
+    assert (held[0, src_m, src_n] == np.stack([at_m, at_n], -1)).all()
+    col_blocks = -(-c // tn)
+    assert plan.blocks == -(-rows // tm) * col_blocks
+    count = np.zeros((rows, c, c), np.int8)
+    stores = np.zeros((rows, c), np.int64)
+    for bx in range(-(-rows // tm)):
+        for by in range(col_blocks):
+            row, d = bx * tm + at_m, by * tn + at_n
+            live = (row < rows) & (d < c)
+            np.add.at(stores, (row[live], d[live]), 1)
+            count[row[live], d[live]] = part[0, src_m[live], src_n[live]]
+    assert (stores == 1).all()
+    return count
+
+
 def _ainv_terms(plan: AinvPlan, rows: int, c: int) -> np.ndarray:
     """How often each product y[r, d] += w[d, c'] · x[r, c'] is summed by the
     plan's threads, from the kernel's index math (csrc/actnorm_invconv.cu)."""
+    if plan.vec == 2:
+        return _ainv_tile_terms(plan, rows, c)
     count = np.zeros((rows, c, c), np.int64)
     t = np.arange(plan.threads)
-    if plan.vec == 2:  # tiled: a 4-wide output vector per thread, all c' in chunks
-        col_blocks = -(-c // (4 * plan.groups))
-        for bx in range(plan.blocks // col_blocks):
-            for by in range(col_blocks):
-                row = bx * plan.rows_per_block + t // plan.groups
-                for j in range(4):
-                    d = by * 4 * plan.groups + 4 * (t % plan.groups) + j
-                    live = (row < rows) & (d < c)
-                    count[row[live], d[live], :] += 1
-        return count
     if not plan.vec:  # one thread per output, all c' in a loop
         for bx in range(plan.blocks):
             row, d = bx * plan.rows_per_block + t // c, t % c
@@ -70,8 +131,14 @@ def _ainv_terms(plan: AinvPlan, rows: int, c: int) -> np.ndarray:
 def _check_ainv_plan(plan: AinvPlan, rows: int, c: int):
     assert plan.threads <= AINV_MAX_THREADS
     if plan.vec == 2:
-        assert c > 64 and plan.lanes == 1 and plan.groups == 8
-        assert plan.threads == plan.rows_per_block * plan.groups and plan.rows_per_block <= 32
+        tm, tn = plan.rows_per_block, 4 * plan.groups
+        assert tm % 4 == 0 and tm <= AINV_TILE_ROWS and tn <= AINV_TILE_COLS
+        assert plan.threads == plan.lanes * (tm // 4) * plan.groups
+        # a stage fits the block's shared memory; a lane sums at least 4
+        # channels of it, the lanes are a power of 2 (their tree of sums)
+        assert ainv_tile_smem(tm, tn, plan.lanes, plan.k_stage, c) <= AINV_MAX_SMEM
+        assert plan.k_stage <= max(AINV_TILE_MAX_K, c) and plan.k_stage // plan.lanes >= 4
+        assert plan.lanes & (plan.lanes - 1) == 0 and plan.lanes <= AINV_TILE_LANES
     elif plan.vec:
         assert c % 4 == 0 and (c // 4) % plan.lanes == 0 and plan.lanes in (1, 2, 4)
         assert (c // 4) % plan.groups == 0
@@ -94,11 +161,59 @@ def test_ainv_plan_covers_every_term_once(b, hw, c):
     _check_ainv_plan(plan, rows, c)
 
 
+def _regime(rows: int, c: int, aligned: bool = True) -> int:
+    """The regime ``ainv_plan`` takes on x [rows, c]: the compile-time width
+    (1) at the gray widths and 12, and at 24, 48 and 96 up to
+    ``AINV_REGISTER_WORK`` (aligned pointers); the tiles (2) at 24 and 48
+    above it and at any c above 64; else the run-time width (0)."""
+    if aligned and c in AINV_RGB_WIDTHS and (c == 12 or rows * c * c <= AINV_REGISTER_WORK):
+        return 1
+    if c > 64 or (aligned and c in (24, 48)):
+        return 2
+    return int(aligned and c in AINV_WIDTHS)
+
+
 @pytest.mark.parametrize("rows,c", [(7, 2), (50, 6), (50, 7), (50, 48), (1, 1), (33, 64)])
 def test_ainv_plan_at_odd_widths(rows, c):
     plan = ainv_plan(rows, c)
-    assert plan.vec == int(c in AINV_WIDTHS + AINV_RGB_WIDTHS)
+    assert plan.vec == _regime(rows, c)
     _check_ainv_plan(plan, rows, c)
+
+
+# x [rows, C] of the tile design: the BAIR CLI step's 2x2x192 (B=32), the wide
+# widths at [512, C], rfn_bair's 4x4x96, 8x8x48 and 16x16x24 (B=32), then
+# ragged rows and odd widths above 64 (several stages at [1, 1024], [5, 300])
+TILE_SHAPES = [(128, 192), (512, 96), (512, 128), (512, 192), (512, 256), (2048, 48),
+               (8192, 24)]
+
+
+@pytest.mark.parametrize("rows,c", TILE_SHAPES + [(131, 66), (7, 100), (33, 130), (7, 192),
+                                                  (5, 300), (1, 256), (1, 1024), (131, 97)])
+def test_ainv_plan_tiles_cover_every_term_once(rows, c):
+    plan = ainv_plan(rows, c)
+    assert plan.vec == 2
+    _check_ainv_plan(plan, rows, c)
+    if (rows, c) in TILE_SHAPES:
+        # one wave over most of the SMs (two blocks an SM up to 64 channels),
+        # all of C in one stage
+        per_sm = 2 if c <= 64 else 1
+        assert 0.9 * per_sm * N_SMS <= plan.blocks <= per_sm * N_SMS and plan.k_stage == c
+
+
+# The RGB widths 24-96 by work: x [8·H·W, C] of rfn_bair's serving request and
+# twice its rows take the compile-time instance, [32·H·W, C] of its train
+# step the tiles; 12 always the compile-time instance
+@pytest.mark.parametrize("rows,c,vec", [(2048, 24, 1), (4096, 24, 1), (8192, 24, 2),
+                                        (512, 48, 1), (1024, 48, 1), (2048, 48, 2),
+                                        (128, 96, 1), (256, 96, 1), (512, 96, 2),
+                                        (8192, 12, 1), (32768, 12, 1)])
+def test_ainv_plan_routes_the_rgb_widths_by_work(rows, c, vec):
+    plan = ainv_plan(rows, c)
+    assert plan.vec == vec == _regime(rows, c)
+    if rows <= 4096:
+        _check_ainv_plan(plan, rows, c)
+    # unaligned pointers: the run-time width up to 64, the tiles above
+    assert ainv_plan(rows, c, aligned=False).vec == (0 if c <= 64 else 2)
 
 
 def test_ainv_plan_takes_the_run_time_width_on_unaligned_pointers():

@@ -7,8 +7,8 @@ a scale only where ``ops.launch_plan`` has a plan for its shape
 actnorm step norm and coupling norm, LU 1x1). At every preset and skip mode
 where a shape has no plan, that scale takes the module path; the model
 then equals the JAX package's module path. The folded 1x1's plan
-(``ops.ainv_plan``) tiles every width above 64 channels, each term of each
-output covered once.
+(``ops.ainv_plan``) tiles every width above 64 channels (and the RGB widths
+24-96), each term of each output covered once.
 
 Tolerances: ``RFN.loss`` pieces within 1e-5·(1+|ref|) and gradients as in
 test_torch_loss.py; ``RFN.predict`` atol 2e-5 on the first predicted frame,
@@ -28,7 +28,7 @@ from recurrent_flows_tpu_torch.convert import tree_from_flax
 from recurrent_flows_tpu_torch.flows import glow as tglow
 from recurrent_flows_tpu_torch.models import RFN
 from recurrent_flows_tpu_torch.ops import ainv_plan, launch_plan, plan_exists
-from recurrent_flows_tpu_torch.ops.fused import N_SMS
+from recurrent_flows_tpu_torch.ops.fused import AINV_REGISTER_WORK, AINV_TILE_ROWS, N_SMS
 from recurrent_flows_tpu_torch.utils import NoiseSource
 from test_torch_flow_kernel_plans import _check_ainv_plan
 
@@ -172,8 +172,8 @@ def test_ainv_plan_tiles_every_width_above_64(rows, c):
     plan = ainv_plan(rows, c)
     assert plan.vec == 2
     assert ainv_plan(rows, c, aligned=False) == plan  # scalar loads: any alignment
-    # under two waves of N_SMS blocks until the tiles hold 32 rows
-    assert plan.blocks < 2 * N_SMS or plan.rows_per_block == 32
+    # under two waves of N_SMS blocks until the tiles hold AINV_TILE_ROWS rows
+    assert plan.blocks < 2 * N_SMS or plan.rows_per_block == AINV_TILE_ROWS
     _check_ainv_plan(plan, rows, c)
 
 
@@ -181,9 +181,16 @@ def test_ainv_plan_tiles_every_width_above_64(rows, c):
 @pytest.mark.parametrize("rows,c", [(32 * 1024, 12), (32 * 256, 24), (32 * 64, 48),
                                     (32 * 16, 96), (7, 12), (131, 24), (1, 48), (33, 96)])
 def test_ainv_plan_takes_the_rgb_widths_in_registers(rows, c):
+    # C = 12, and 24-96 up to AINV_REGISTER_WORK (rows · C²), in the
+    # compile-time instance, a thread's row and W's rows in registers; the
+    # train step's 24, 48 and 96 (B=32) in the tile design, a 4x4 register
+    # tile per thread over x and W staged in shared memory
     plan = ainv_plan(rows, c)
-    assert plan.vec == 1 and plan.lanes == (4 if c >= 32 else 1)
-    assert plan.groups == (1 if c == 12 else 2)  # a power of 2 dividing C/4
+    if c == 12 or rows * c * c <= AINV_REGISTER_WORK:
+        assert plan.vec == 1 and plan.lanes == (4 if c >= 32 else 1)
+        assert plan.groups == (1 if c == 12 else 2)  # a power of 2 dividing C/4
+    else:
+        assert rows == 32 * (96 // c) ** 2 * 16 and plan.vec == 2 and plan.k_stage == c
     _check_ainv_plan(plan, rows, c)
     # unaligned pointers: the run-time width up to 64, the tiles above
     assert ainv_plan(rows, c, aligned=False).vec == (0 if c <= 64 else 2)

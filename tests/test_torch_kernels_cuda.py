@@ -34,6 +34,7 @@ from recurrent_flows_tpu_torch.ops import (
     glowstep,
     glowstep_ref,
 )
+from recurrent_flows_tpu_torch.ops.fused import AINV_REGISTER_WORK
 from recurrent_flows_tpu_torch.utils import float32_precision
 
 pytestmark = pytest.mark.cuda
@@ -381,7 +382,7 @@ def _ainv_agrees(cuda, rows, c, offset=0, orthogonal=False):
 @pytest.mark.parametrize("rows,c", [(30 * 32 * 32, 4), (1000, 8), (120, 64), (7, 2)])
 def test_actnorm_invconv_kernel_matches_plain(cuda, rows, c):
     _ainv_agrees(cuda, rows, c)
-    # above 64 channels the tiled instance launches; a strided x is refused
+    # above 64 channels the tile design launches; a strided x is refused
     _ainv_agrees(cuda, 4, 66)
     x = torch.zeros(4, 2 * c, device="cuda")[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
@@ -391,27 +392,38 @@ def test_actnorm_invconv_kernel_matches_plain(cuda, rows, c):
 
 # x [B·H·W, C] above 64 channels: rfn_bair's scale 3 at the train step
 # (32·4·4 rows of 96) and the request (8·4·4), then 128 (gray, L = 6),
-# 192 and 256 (RGB at L = 5, gray at L = 7); ragged row counts, and x one or
-# two floats into its buffer (not 16-byte aligned). W is orthogonal, as the
-# flow's: with an N(0,1) W of 256 columns the outputs' partial sums reach
-# ~16, and float32 sums in two orders (the kernel's, cuBLAS's) differ by
-# ~1.6e-5 at outputs near 0 (measured on the H100), past 1e-5·(1+|ref|)
+# 192 (RGB at L = 5: main_rfn --choose_data bair at its defaults, whose
+# step at B=32 gives 32·2·2 = 128 rows of 192) and 256 (gray at L = 7);
+# then widths no flow width is: 100 and 160 (the run-time-width instance
+# with bulk copies, 100 with zeroed channels past C), 300, 384 (RGB at
+# L = 6) and 1024 (two stage buffers taking turns, 300 with a short last
+# stage); ragged row counts, and x one or two floats into its buffer (not
+# 16-byte aligned: 4-byte loads). W is orthogonal, as the flow's: with an N(0,1) W
+# of 256 columns the outputs' partial sums reach ~16, and float32 sums in
+# two orders (the kernel's, cuBLAS's) differ by ~1.6e-5 at outputs near 0
+# (measured on the H100), past 1e-5·(1+|ref|)
 @pytest.mark.parametrize("offset", [0, 1, 2])
 @pytest.mark.parametrize("rows", [32 * 16, 8 * 16, 131, 7, 1])
-@pytest.mark.parametrize("c", [96, 128, 192, 256])
+@pytest.mark.parametrize("c", [96, 128, 192, 256, 100, 160, 300, 384, 1024])
 def test_actnorm_invconv_kernel_above_64_channels(cuda, c, rows, offset):
-    # 96 aligned: the compile-time instance; otherwise the tiled one
-    assert ainv_plan(rows, c, aligned=offset == 0).vec == (1 if c == 96 and offset == 0 else 2)
+    # every width above 64 takes the tile design, aligned or not, but 96 with
+    # aligned pointers at little work: the compile-time instance
+    small = c == 96 and offset == 0 and rows * c * c <= AINV_REGISTER_WORK
+    assert ainv_plan(rows, c, aligned=offset == 0).vec == (1 if small else 2)
     _ainv_agrees(cuda, rows, c, offset, orthogonal=True)
 
 
-# x [32·H·W, C] at rfn_bair's four scales (the train step), ragged row
-# counts, and x one float into its buffer (the run-time-width instance)
-@pytest.mark.parametrize("rows,c,offset", [
-    (32 * 1024, 12, 0), (32 * 256, 24, 0), (32 * 64, 48, 0), (32 * 16, 96, 0),
-    (7, 12, 0), (131, 24, 0), (1, 48, 0), (33, 96, 0), (8 * 256, 24, 1), (8 * 64, 48, 1)])
-def test_actnorm_invconv_kernel_at_rgb_widths(cuda, rows, c, offset):
-    assert ainv_plan(rows, c, aligned=offset == 0).vec == (0 if offset else 1)
+# x [32·H·W, C] at rfn_bair's four scales (the train step: the tile design
+# from 24), the BAIR CLI step's 2x2x192 (B=32), the request's 4x4x96 and
+# 16x16x24 (B=8: the compile-time instance), ragged row counts, and x one
+# float into its buffer (the run-time-width instance up to 64)
+@pytest.mark.parametrize("rows,c,offset,vec", [
+    (32 * 1024, 12, 0, 1), (32 * 256, 24, 0, 2), (32 * 64, 48, 0, 2), (32 * 16, 96, 0, 2),
+    (32 * 4, 192, 0, 2), (8 * 16, 96, 0, 1), (8 * 256, 24, 0, 1),
+    (7, 12, 0, 1), (131, 24, 0, 1), (1, 48, 0, 1), (33, 96, 0, 1), (8 * 256, 24, 1, 0),
+    (8 * 64, 48, 1, 0)])
+def test_actnorm_invconv_kernel_at_rgb_widths(cuda, rows, c, offset, vec):
+    assert ainv_plan(rows, c, aligned=offset == 0).vec == vec
     _ainv_agrees(cuda, rows, c, offset, orthogonal=c > 64)
 
 

@@ -68,7 +68,10 @@ def _ainv_inputs(seed=0, shape=(2, 8, 8, 16)):
     return f(*shape), f(c, scale=0.3), f(c, scale=0.3), f(c, c, scale=c ** -0.5)
 
 
-@pytest.mark.parametrize("shape", [(2, 8, 8, 16), (3, 2, 2, 64), (300, 4)])
+# the last two: the BAIR CLI step's 2x2x192 and rfn_bair's 4x4x96 scales, the
+# widths of the tile design
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16), (3, 2, 2, 64), (300, 4), (2, 2, 2, 192),
+                                   (2, 4, 4, 96)])
 def test_actnorm_invconv_plain_matches_jnp_and_pallas(force_pallas_interpret, shape):
     x, bias, logs, w = _ainv_inputs(0, shape)
     args = [jnp.asarray(a) for a in (x, bias, logs, w)]
