@@ -50,6 +50,7 @@ from ..ops.glowstep import GlowStepParams, glowstep, plan_exists
 from ..parallel.mesh import grid, own_rows
 from ..utils.numerics import (batch_reduce, normal_log_prob, split_feature,
                               squeeze2d, unsqueeze2d)
+from ..utils.profiling import span
 from .modules import (ActNorm, AffineCoupling, BatchNormFlow, Conv2dNorm, Conv2dZeros,
                       InvConv, Split2d)
 
@@ -259,25 +260,26 @@ class ListGlow(nn.Module):
         cfg = self.cfg
         z = x
         for l in range(cfg.L):
-            z = squeeze2d(z)
-            if not ddi and self.chain_eligible(l, z.shape[0], reverse=False):
-                params, static_ld_px = self.chain_params(l, reverse=False)
-                g, cond = grid(), conditions[l]
-                if g is not None:  # the whole frame (module docstring)
-                    z, cond = g.gather(z), g.gather(cond)
-                z, dyn_ld = glowchain(z.contiguous(), cond.contiguous(),
-                                      params, cfg.clamp_type, False)
-                ld = dyn_ld + static_ld_px * (z.shape[1] * z.shape[2])
-                if g is not None:
-                    z, ld = g.reshard(z), g.share(ld, z)
-                logdet = logdet + ld
-            else:
-                for k in range(cfg.K):
-                    z, logdet = self.step(l, k)(z, conditions[l], logdet, ddi,
-                                                training)
-            if l < cfg.L - 1:
-                z, logdet = getattr(self, f"split{l}")(z, conditions[l],
-                                                       logdet, ddi)
+            with span("glow.f.l", l):
+                z = squeeze2d(z)
+                if not ddi and self.chain_eligible(l, z.shape[0], reverse=False):
+                    params, static_ld_px = self.chain_params(l, reverse=False)
+                    g, cond = grid(), conditions[l]
+                    if g is not None:  # the whole frame (module docstring)
+                        z, cond = g.gather(z), g.gather(cond)
+                    z, dyn_ld = glowchain(z.contiguous(), cond.contiguous(),
+                                          params, cfg.clamp_type, False)
+                    ld = dyn_ld + static_ld_px * (z.shape[1] * z.shape[2])
+                    if g is not None:
+                        z, ld = g.reshard(z), g.share(ld, z)
+                    logdet = logdet + ld
+                else:
+                    for k in range(cfg.K):
+                        z, logdet = self.step(l, k)(z, conditions[l], logdet, ddi,
+                                                    training)
+                if l < cfg.L - 1:
+                    z, logdet = getattr(self, f"split{l}")(z, conditions[l],
+                                                           logdet, ddi)
         return z, logdet
 
     def g(self, z, conditions: Sequence, noise, temperature: float = 1.0,
@@ -290,16 +292,17 @@ class ListGlow(nn.Module):
             chain = self.prepare_chain(z.shape[0])
         x = z
         for l in reversed(range(cfg.L)):
-            if l < cfg.L - 1:
-                x = getattr(self, f"split{l}").reverse(
-                    x, conditions[l], noise, temperature)
-            if l in chain:
-                x, _ = glowchain(x.contiguous(), conditions[l].contiguous(),
-                                 chain[l], cfg.clamp_type, True)
-            else:
-                for k in reversed(range(cfg.K)):
-                    x = self.step(l, k).reverse(x, conditions[l])
-            x = unsqueeze2d(x)
+            with span("glow.g.l", l):
+                if l < cfg.L - 1:
+                    x = getattr(self, f"split{l}").reverse(
+                        x, conditions[l], noise, temperature)
+                if l in chain:
+                    x, _ = glowchain(x.contiguous(), conditions[l].contiguous(),
+                                     chain[l], cfg.clamp_type, True)
+                else:
+                    for k in reversed(range(cfg.K)):
+                        x = self.step(l, k).reverse(x, conditions[l])
+                x = unsqueeze2d(x)
         return x
 
     # -- densities --------------------------------------------------------
@@ -310,19 +313,20 @@ class ListGlow(nn.Module):
         """(z, nll [B]). With ``dequantize``, ``noise`` draws the uniform
         dequantization noise in [0, 1/n_bins); the -log(n_bins)·D
         correction is always applied."""
-        b = x.shape[0]
-        n_bins = 2.0 ** self.cfg.n_bits
-        dims = x.shape[1] * x.shape[2] * x.shape[3]
-        if dequantize:
-            x = x + noise.uniform(x, 0.0, 1.0 / n_bins)
-        const = logdet - math.log(n_bins) * dims
-        g = grid()
-        obj = torch.full((b,), const if g is None else g.share(const, x),
-                         dtype=x.dtype, device=x.device)
-        z, obj = self.f(x, conditions, obj, ddi, training)
-        mean, log_scale = self.base_params(base_condition, b, ddi)
-        obj = obj + batch_reduce(normal_log_prob(z, mean, torch.exp(log_scale)))
-        return z, -obj
+        with span("glow.log_prob"):
+            b = x.shape[0]
+            n_bins = 2.0 ** self.cfg.n_bits
+            dims = x.shape[1] * x.shape[2] * x.shape[3]
+            if dequantize:
+                x = x + noise.uniform(x, 0.0, 1.0 / n_bins)
+            const = logdet - math.log(n_bins) * dims
+            g = grid()
+            obj = torch.full((b,), const if g is None else g.share(const, x),
+                             dtype=x.dtype, device=x.device)
+            z, obj = self.f(x, conditions, obj, ddi, training)
+            mean, log_scale = self.base_params(base_condition, b, ddi)
+            obj = obj + batch_reduce(normal_log_prob(z, mean, torch.exp(log_scale)))
+            return z, -obj
 
     def sample(self, conditions, base_condition, noise,
                temperature: float = 0.8, chain: dict | None = None,
@@ -332,12 +336,13 @@ class ListGlow(nn.Module):
         and no base eps is drawn (the JAX package splits a key for it and
         never uses it). With ``eval_params`` returns (x, (mean, std)) of the
         base distribution."""
-        if z is None or eval_params:
-            mean, log_scale = self.base_params(base_condition,
-                                               base_condition.shape[0])
-        if z is None:
-            z = mean + torch.exp(log_scale) * temperature * noise.normal(mean)
-        x = self.g(z, conditions, noise, temperature, chain, training)
-        if eval_params:
-            return x, (mean, torch.exp(log_scale))
+        with span("glow.sample"):
+            if z is None or eval_params:
+                mean, log_scale = self.base_params(base_condition,
+                                                   base_condition.shape[0])
+            if z is None:
+                z = mean + torch.exp(log_scale) * temperature * noise.normal(mean)
+            x = self.g(z, conditions, noise, temperature, chain, training)
+            if eval_params:
+                return x, (mean, torch.exp(log_scale))
         return x

@@ -61,6 +61,7 @@ from ..nn.vgg import VGGDownscaler, VGGUpscaler, downscaler_layer_sizes
 from ..utils.numerics import (NoiseSource, batch_reduce, expand_to_batch,
                               float32_precision, free_bits_kl, normal_kl,
                               normal_sample)
+from ..utils.profiling import span
 from ..utils.running_stats import updating_running_stats
 
 
@@ -137,7 +138,8 @@ class RFN(nn.Module):
         return bool(self.eval_norm and self.cfg.track_running_stats)
 
     def _extract(self, x):
-        return self.extractor(x, self._ura)
+        with span("rfn.extract"):
+            return self.extractor(x, self._ura)
 
     def _enc_net(self, x):
         return self.encoder(x, self._ura)
@@ -167,15 +169,16 @@ class RFN(nn.Module):
     def _flow_conditions(self, ht, zt, skips_prev):
         """Upscaler conditions + the skip-mode combination for one step."""
         cfg = self.cfg
-        hz = torch.cat([ht, zt], -1)
-        if cfg.skip_connection_features:
-            conds = self.upscaler(hz, skips_prev, self._ura)
-        else:
-            conds = self.upscaler(hz, use_running_average=self._ura)
-        if cfg.skip_connection_flow == "with_skip":
-            conds = [torch.cat([c, s], -1) for c, s in zip(conds, skips_prev)]
-        elif cfg.skip_connection_flow == "only_skip":
-            conds = list(skips_prev)
+        with span("rfn.flow_conditions"):
+            hz = torch.cat([ht, zt], -1)
+            if cfg.skip_connection_features:
+                conds = self.upscaler(hz, skips_prev, self._ura)
+            else:
+                conds = self.upscaler(hz, use_running_average=self._ura)
+            if cfg.skip_connection_flow == "with_skip":
+                conds = [torch.cat([c, s], -1) for c, s in zip(conds, skips_prev)]
+            elif cfg.skip_connection_flow == "only_skip":
+                conds = list(skips_prev)
         return conds, hz
 
     def _unroll(self, x):
@@ -184,13 +187,15 @@ class RFN(nn.Module):
         None). hs[t] is the state after frames 0..t; as_[t] the smoothing
         a-LSTM's, scanned backward from the last frame."""
         cfg = self.cfg
-        feats, f_last = self._features(x)
-        h0, c0, a0, ca0, _, _ = self.get_inits(x.shape[0])
-        hs, h_t, c_t = conv_lstm_scan(self.lstm, f_last[:-1], h0, c0)
-        as_ = None
-        if cfg.enable_smoothing:
-            as_, _, _ = conv_lstm_scan(self.a_lstm, torch.cat([hs, f_last[1:]], -1),
-                                       a0, ca0, reverse=True)
+        with span("rfn.unroll"):
+            feats, f_last = self._features(x)
+            h0, c0, a0, ca0, _, _ = self.get_inits(x.shape[0])
+            with span("rfn.convlstm_scan"):
+                hs, h_t, c_t = conv_lstm_scan(self.lstm, f_last[:-1], h0, c0)
+                as_ = None
+                if cfg.enable_smoothing:
+                    as_, _, _ = conv_lstm_scan(self.a_lstm, torch.cat([hs, f_last[1:]], -1),
+                                               a0, ca0, reverse=True)
         return feats, f_last, hs, (h_t, c_t), as_
 
     def _encode(self, ht, at, feat_t, zxprev):
@@ -203,12 +208,13 @@ class RFN(nn.Module):
         """Encoder and prior parameters of one step: (enc_mean, enc_std,
         prior_mean, prior_std), with the residual posterior under res_q."""
         cfg = self.cfg
-        enc_mean, enc_std = self._encode(ht, at, feat_t, zxprev)
-        if cfg.res_q:
-            prior_mean, prior_std = self._prior_net(torch.cat([ht, zxprev], -1))
-            enc_mean = prior_mean + enc_mean
-        else:
-            prior_mean, prior_std = self._prior_net(torch.cat([ht, zprev], -1))
+        with span("rfn.posterior_prior"):
+            enc_mean, enc_std = self._encode(ht, at, feat_t, zxprev)
+            if cfg.res_q:
+                prior_mean, prior_std = self._prior_net(torch.cat([ht, zxprev], -1))
+                enc_mean = prior_mean + enc_mean
+            else:
+                prior_mean, prior_std = self._prior_net(torch.cat([ht, zprev], -1))
         return enc_mean, enc_std, prior_mean, prior_std
 
     # ------------------------------------------------------------------
@@ -281,14 +287,15 @@ class RFN(nn.Module):
                  for _ in range(t - 1)]
 
         def step(zprev, zxprev, x_t, ht, at, feat_t, sk_prev, eps_p, eps_q, u):
-            enc_mean, enc_std, prior_mean, prior_std = self._posterior_prior(
-                ht, at, feat_t, zprev, zxprev)
-            zt = normal_sample(prior_mean, prior_std, eps_p)
-            zxt = normal_sample(enc_mean, enc_std, eps_q)
-            conds, hz = self._flow_conditions(ht, zxt, sk_prev)
-            kl = normal_kl(enc_mean, enc_std, prior_mean, prior_std)
-            _, nll = self.flow.log_prob(x_t + u, conds, hz, logdet=logdet,
-                                        dequantize=False)
+            with span("rfn.step"):
+                enc_mean, enc_std, prior_mean, prior_std = self._posterior_prior(
+                    ht, at, feat_t, zprev, zxprev)
+                zt = normal_sample(prior_mean, prior_std, eps_p)
+                zxt = normal_sample(enc_mean, enc_std, eps_q)
+                conds, hz = self._flow_conditions(ht, zxt, sk_prev)
+                kl = normal_kl(enc_mean, enc_std, prior_mean, prior_std)
+                _, nll = self.flow.log_prob(x_t + u, conds, hz, logdet=logdet,
+                                            dequantize=False)
             return zt, zxt, kl, enc_mean, enc_std, nll
 
         zprev, zxprev = z0, z0x
@@ -325,25 +332,26 @@ class RFN(nn.Module):
         depth d: the prior is re-rolled from the stored posterior chain,
         accumulating overshot_w·KL(q || p) / D_t with D_t = min(T-1-t, D+1);
         for d > 0 no gradient flows into q."""
-        cfg = self.cfg
-        n_t = hs.shape[0]  # T-1
-        d_t = torch.clamp(n_t - torch.arange(n_t, device=hs.device),
-                          max=cfg.D + 1).to(hs.dtype)
-        acc = torch.zeros_like(enc_means)  # [T-1, B, hu, wu, z]
-        zprev = zx_prevs
-        for d in range(min(cfg.D + 1, n_t)):
-            n = n_t - d
-            inp = torch.cat([hs[d:], zprev[:n]], -1)
-            pm, ps = self._prior_net(inp.reshape((-1,) + inp.shape[2:]))
-            pm = pm.reshape((n,) + inp.shape[1:4] + (-1,))
-            ps = ps.reshape(pm.shape)
-            zprev = pm + ps * noise.normal(pm)
-            em, es = enc_means[d:], enc_stds[d:]
-            if d > 0:
-                em, es = em.detach(), es.detach()
-            w = (cfg.overshot_w / d_t[:n]).reshape((n, 1, 1, 1, 1))
-            acc = acc + torch.cat([w * normal_kl(em, es, pm, ps),
-                                   torch.zeros_like(acc[n:])])
+        with span("rfn.overshoot_kl"):
+            cfg = self.cfg
+            n_t = hs.shape[0]  # T-1
+            d_t = torch.clamp(n_t - torch.arange(n_t, device=hs.device),
+                              max=cfg.D + 1).to(hs.dtype)
+            acc = torch.zeros_like(enc_means)  # [T-1, B, hu, wu, z]
+            zprev = zx_prevs
+            for d in range(min(cfg.D + 1, n_t)):
+                n = n_t - d
+                inp = torch.cat([hs[d:], zprev[:n]], -1)
+                pm, ps = self._prior_net(inp.reshape((-1,) + inp.shape[2:]))
+                pm = pm.reshape((n,) + inp.shape[1:4] + (-1,))
+                ps = ps.reshape(pm.shape)
+                zprev = pm + ps * noise.normal(pm)
+                em, es = enc_means[d:], enc_stds[d:]
+                if d > 0:
+                    em, es = em.detach(), es.detach()
+                w = (cfg.overshot_w / d_t[:n]).reshape((n, 1, 1, 1, 1))
+                acc = acc + torch.cat([w * normal_kl(em, es, pm, ps),
+                                       torch.zeros_like(acc[n:])])
         return acc.sum(0)
 
     # ------------------------------------------------------------------
@@ -354,20 +362,21 @@ class RFN(nn.Module):
         ``kl_temperature``) and zxt (posterior sample), stacked by
         ``_time_major`` where a caller reads them all; ``last`` the
         h-LSTM's (h, c) and the last (zt, zxt)."""
-        b, t = x.shape[:2]
-        feats, f_last, hs, (h_t, c_t), as_ = self._unroll(x)
-        zprev, zxprev = self.get_inits(b)[4:]
-        steps = []
-        for i in range(t - 1):
-            enc_mean, enc_std, prior_mean, prior_std = self._posterior_prior(
-                hs[i], as_[i] if as_ is not None else None, f_last[i + 1],
-                zprev, zxprev)
-            zprev = normal_sample(prior_mean, prior_std * kl_temperature,
-                                  noise.normal(prior_mean))
-            zxprev = normal_sample(enc_mean, enc_std, noise.normal(enc_mean))
-            steps.append(dict(prior_mean=prior_mean, prior_std=prior_std,
-                              enc_mean=enc_mean, enc_std=enc_std, zt=zprev,
-                              zxt=zxprev))
+        with span("rfn.posterior_scan"):
+            b, t = x.shape[:2]
+            feats, f_last, hs, (h_t, c_t), as_ = self._unroll(x)
+            zprev, zxprev = self.get_inits(b)[4:]
+            steps = []
+            for i in range(t - 1):
+                enc_mean, enc_std, prior_mean, prior_std = self._posterior_prior(
+                    hs[i], as_[i] if as_ is not None else None, f_last[i + 1],
+                    zprev, zxprev)
+                zprev = normal_sample(prior_mean, prior_std * kl_temperature,
+                                      noise.normal(prior_mean))
+                zxprev = normal_sample(enc_mean, enc_std, noise.normal(enc_mean))
+                steps.append(dict(prior_mean=prior_mean, prior_std=prior_std,
+                                  enc_mean=enc_mean, enc_std=enc_std, zt=zprev,
+                                  zxt=zxprev))
         return steps, hs, feats, (h_t, c_t, zprev, zxprev)
 
     def _rollout(self, h, c, zprev, frame, n: int, noise: NoiseSource,
@@ -375,21 +384,25 @@ class RFN(nn.Module):
         """The autoregressive loop of ``predict`` and ``sample``: n frames on
         from ``frame`` and the recurrent state (h, c, zprev), [n, B, ...].
         The chain kernel's stacked parameters are prepared once."""
-        chain = self.flow.prepare_chain(frame.shape[0])
+        with span("rfn.prepare_chain"):
+            chain = self.flow.prepare_chain(frame.shape[0])
         frames = []
         for _ in range(n):
-            if self._use_skip_list:
-                cond_list = self._extract(frame)
-                condition = cond_list[-1]
-            else:
-                cond_list = None
-                condition = self._extract(frame)
-            h, c = self.lstm(condition, h, c)
-            prior_mean, prior_std = self._prior_net(torch.cat([h, zprev], -1))
-            zprev = normal_sample(prior_mean, prior_std * kl_temperature,
-                                  noise.normal(prior_mean))
-            conds, hz = self._flow_conditions(h, zprev, cond_list)
-            frame = self.flow.sample(conds, hz, noise, temperature, chain)
+            with span("rfn.rollout.frame"):
+                if self._use_skip_list:
+                    cond_list = self._extract(frame)
+                    condition = cond_list[-1]
+                else:
+                    cond_list = None
+                    condition = self._extract(frame)
+                with span("rfn.lstm"):
+                    h, c = self.lstm(condition, h, c)
+                with span("rfn.prior"):
+                    prior_mean, prior_std = self._prior_net(torch.cat([h, zprev], -1))
+                    zprev = normal_sample(prior_mean, prior_std * kl_temperature,
+                                          noise.normal(prior_mean))
+                conds, hz = self._flow_conditions(h, zprev, cond_list)
+                frame = self.flow.sample(conds, hz, noise, temperature, chain)
             frames.append(frame)
         return torch.stack(frames)
 

@@ -36,6 +36,7 @@ from .models import split_reconstruction
 from .training.checkpoint import load_model_from_checkpoint
 from .training.trainer import preprocess
 from .utils.numerics import NoiseSource, RecordingNoise, draw_list, float32_precision
+from .utils.profiling import span
 
 # the artifact's own record, stored beside the program
 _META = "rft_serving.json"
@@ -129,10 +130,13 @@ class Predictor:
         """context [B, >=n_conditions, H, W, C] in [0,1] -> future frames
         [B, n_pred, H, W, C] in [0,1]. ``noise`` replaces the generator's
         draws (tests inject the JAX package's), on every endpoint."""
-        x = self._to_model_space(context_frames[:, : self.n_conditions])
-        _, preds = self.model.predict(x, self.n_predictions, self.n_conditions,
-                                      self._noise(noise), **self._temp)
-        return self._to_image_space(preds.transpose(0, 1))
+        with span("serve.to_model_space"):
+            x = self._to_model_space(context_frames[:, : self.n_conditions])
+        with span("serve.model"):
+            _, preds = self.model.predict(x, self.n_predictions, self.n_conditions,
+                                          self._noise(noise), **self._temp)
+        with span("serve.to_image_space"):
+            return self._to_image_space(preds.transpose(0, 1))
 
     def reconstruct(self, frames, noise: NoiseSource | None = None):
         """frames [B, T, H, W, C] in [0,1] -> posterior reconstructions of

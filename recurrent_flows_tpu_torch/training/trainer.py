@@ -65,7 +65,7 @@ from ..flows.ddi import data_dependent_init
 from ..models import split_reconstruction
 from ..parallel.mesh import spatial_constraint
 from ..utils.numerics import NoiseSource, float32_precision
-from ..utils.profiling import StepTimer, trace
+from ..utils.profiling import StepTimer, span, trace
 from ..utils.running_stats import has_running_stats
 from .checkpoint import load_state, read_meta, save_checkpoint
 from .schedules import BetaSchedule, EarlyStopping, PlateauScheduler, linear_lr
@@ -251,15 +251,20 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         with float32_precision(), (dp.active() if dp is not None
                                    else contextlib.nullcontext()):
-            out = self.model.loss(x, noise)
-            loss = out["nll"] + beta * out["kl_free_bits"]
-            loss.backward()
+            with span("train.forward"):
+                out = self.model.loss(x, noise)
+                loss = out["nll"] + beta * out["kl_free_bits"]
+            with span("train.backward"):
+                loss.backward()
         if dp is not None:  # summed over 'model', averaged over 'data'
-            dp.reduce_grads_(p.grad for p in self.model.parameters() if p.grad is not None)
+            with span("train.dp_reduce"):
+                dp.reduce_grads_(p.grad for p in self.model.parameters() if p.grad is not None)
         if tcfg.grad_clip > 0:
-            clip_by_global_norm_([p.grad for p in self.model.parameters()
-                                  if p.grad is not None], tcfg.grad_clip)
-        self.optimizer.step()
+            with span("train.clip"):
+                clip_by_global_norm_([p.grad for p in self.model.parameters()
+                                      if p.grad is not None], tcfg.grad_clip)
+        with span("train.adam"):
+            self.optimizer.step()
         metrics = dict(loss=loss.detach(), kl=out["kl"].detach(), nll=out["nll"].detach())
         if dp is not None:
             metrics = dp.reduce_metrics(metrics)

@@ -1,10 +1,40 @@
-"""Step timing and tracing, the counterparts of ``StepTimer`` and
-``trace`` in ``recurrent_flows_tpu.utils.profiling``.
+"""Step timing, tracing and the program's spans, the counterparts of
+``StepTimer`` and ``trace`` in ``recurrent_flows_tpu.utils.profiling``.
 
 ``trace(profile_dir)`` records a region with ``torch.profiler`` (host
 operators, and the CUDA kernels where there is a card) and writes a Chrome
 trace, ``<profile_dir>/<host>_<pid>.<ms>.pt.trace.json``, which
 TensorBoard's profiler plugin and Perfetto read; ``None`` records nothing.
+``Trainer.train_epoch(profile_dir=...)`` records its epoch so.
+
+``span(name)`` marks a phase of the program in whatever ``torch.profiler``
+trace is recording (``trace``'s, or any other caller's); where none is, it
+is a shared do-nothing context (~0.2 us on a CPU core) and records nothing.
+The spans, by the place that opens them:
+
+- ``Trainer.train_step``: ``train.forward`` (``model.loss`` and the loss
+  sum), ``train.backward`` (``loss.backward()``, where RFN's per-frame
+  steps are recomputed), ``train.dp_reduce`` (data-parallel only),
+  ``train.clip``, ``train.adam``;
+- ``RFN``: ``rfn.unroll`` (features and the ConvLSTM scans, inside it
+  ``rfn.convlstm_scan``), ``rfn.extract`` (each extractor call),
+  ``rfn.step`` (one frame of ``loss``, again when recomputed),
+  ``rfn.posterior_prior``, ``rfn.flow_conditions`` (the upscaler),
+  ``rfn.overshoot_kl``, ``rfn.posterior_scan`` (the context of a
+  rollout), ``rfn.prepare_chain`` (the chain kernel's stacked parameters,
+  once a rollout), ``rfn.rollout.frame`` (one predicted frame, inside it
+  ``rfn.lstm`` and ``rfn.prior``);
+- ``ListGlow``: ``glow.log_prob``, ``glow.sample``, and each scale l of
+  ``f`` and ``g``, ``glow.f.l<l>`` and ``glow.g.l<l>``;
+- ``Predictor.predict``: ``serve.to_model_space``, ``serve.model``,
+  ``serve.to_image_space`` (which holds the wait for the frames' copy to
+  the host).
+
+In the Chrome trace the spans are ranges on the host threads that opened
+them; the backward's, and with it the recomputed steps', run on the
+autograd engine's thread on a card. ``SpanReading.of(prof)`` reads a
+finished profile by span: how often each opened, the kernel launches that
+started inside it and the device time of the kernels they launched.
 
 Two measurements, because a step's host time under asynchronous launches
 says when the step was queued, not when it ran:
@@ -20,11 +50,23 @@ says when the step was queued, not when it ran:
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import dataclasses
+import heapq
 import time
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
+
+# host calls that put a kernel on the device's queue
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel", "cudaGraphLaunch")
+# the first part of every name given to ``span``
+SPAN_LAYERS = ("train.", "rfn.", "glow.", "serve.")
+
+_OFF = contextlib.nullcontext()
 
 
 class StepTimer:
@@ -85,3 +127,147 @@ def trace(profile_dir: str | None):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
         yield
+
+
+def span(name: str, index: int | None = None):
+    """``name`` (with ``index`` appended: a flow scale's) as a range of the
+    recording ``torch.profiler`` trace, or a shared do-nothing context
+    where none records, the name then never built. The range is a
+    function-scope record, which Kineto does not copy onto the device's
+    timeline as a ``gpu_user_annotation``, so a trace's device events stay
+    kernels, copies and sets; and no operator, so ``torch.export`` puts
+    nothing of it in a graph."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _RecordFunctionFast(name if index is None else f"{name}{index}")
+
+
+@dataclasses.dataclass
+class SpanReading:
+    """A finished ``torch.profiler`` profile read by the program's spans.
+
+    A CUDA call belongs to every span open, on any thread, when it starts:
+    the caller's thread sits inside ``train.backward`` while the autograd
+    engine's thread launches the backward. A device operation belongs where
+    the call that queued it does, found by their shared correlation id."""
+
+    spans: list  # (start_ns, end_ns, name) of each span opened, on any thread
+    calls: list  # (start_ns, correlation_id, name) of each CUDA API call (cuda*, cu*)
+    ops: list  # (start_ns, end_ns, name, correlation_id) of each device operation
+
+    @classmethod
+    def of(cls, prof) -> "SpanReading":
+        """The reading of ``prof`` (a ``torch.profiler.profile`` that has
+        stopped). Ranges that Kineto copies onto the device's timeline
+        (``gpu_user_annotation``, from ``record_function``) are no device
+        operations and are left out."""
+        spans, calls, ops = [], [], []
+        for ev in prof.profiler.kineto_results.events():
+            name = ev.name()
+            if str(ev.device_type()).endswith("CUDA"):
+                if not ev.is_user_annotation():
+                    ops.append((ev.start_ns(), ev.end_ns(), name, ev.correlation_id()))
+            elif name.startswith(SPAN_LAYERS):
+                spans.append((ev.start_ns(), ev.end_ns(), name))
+            elif name.startswith("cu"):
+                calls.append((ev.start_ns(), ev.correlation_id(), name))
+        return cls(sorted(spans), sorted(calls), sorted(ops))
+
+    def _calls_in(self, match) -> list:
+        """The calls that start inside a span whose name ``match`` accepts."""
+        merged = []
+        for s, e, name in self.spans:
+            if not match(name):
+                continue
+            if merged and s <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], e)
+            else:
+                merged.append([s, e])
+        starts = [s for s, _ in merged]
+        out = []
+        for call in self.calls:
+            i = bisect.bisect_right(starts, call[0]) - 1
+            if i >= 0 and call[0] < merged[i][1]:
+                out.append(call)
+        return out
+
+    @staticmethod
+    def _launches(calls) -> int:
+        return sum(1 for _, _, name in calls if name in LAUNCH_CALLS)
+
+    def _device_s(self, calls) -> float:
+        corr = {c for _, c, _ in calls}
+        return _union_s((s, e) for s, e, _, c in self.ops if c in corr)
+
+    def count(self, prefix: str) -> int:
+        """Spans opened whose name starts with ``prefix``."""
+        return sum(1 for _, _, name in self.spans if name.startswith(prefix))
+
+    def launches(self) -> int:
+        return self._launches(self.calls)
+
+    def launches_in(self, prefix: str) -> int:
+        """Kernel launches that started inside a span named ``prefix...``
+        (``""``: inside any span)."""
+        return self._launches(self._calls_in(lambda name: name.startswith(prefix)))
+
+    def device_s_in(self, prefix: str) -> float:
+        """Seconds of the union of the device operations queued inside a
+        span named ``prefix...``."""
+        return self._device_s(self._calls_in(lambda name: name.startswith(prefix)))
+
+    def busy_s(self) -> float:
+        """Seconds of the union of every device operation."""
+        return _union_s((s, e) for s, e, _, _ in self.ops)
+
+    def table(self) -> dict:
+        """{span name: dict(count, launches, device_s)}, each name's own
+        ranges (a nested span counts in its parent's row too)."""
+        out = {}
+        for name in sorted({name for _, _, name in self.spans}):
+            calls = self._calls_in(lambda n, name=name: n == name)
+            out[name] = dict(count=sum(1 for _, _, n in self.spans if n == name),
+                             launches=self._launches(calls), device_s=self._device_s(calls))
+        return out
+
+    def idle_gaps(self, limit: int = 10) -> list:
+        """The longest gaps between device operations, summed by the
+        innermost span open when the call that queued the operation ending
+        the gap started ("" where none was): [[name, seconds], ...]."""
+        start_of = {c: t for t, c, _ in self.calls}
+        gaps, end = [], None
+        for s, e, _, c in self.ops:
+            if end is not None and s > end and c in start_of:
+                gaps.append((start_of[c], s - end))
+            end = e if end is None else max(end, e)
+        gaps.sort()
+        by_name = {}
+        for name, (_, dt) in zip(self._innermost([t for t, _ in gaps]), gaps):
+            by_name[name] = by_name.get(name, 0) + dt
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:limit]
+        return [[name, dt / 1e9] for name, dt in top]
+
+    def _innermost(self, times) -> list:
+        """For each of ``times`` (ascending), the name of the latest-opened
+        span still open then, on any thread, or ""."""
+        out, open_, i = [], [], 0
+        for t in times:
+            while i < len(self.spans) and self.spans[i][0] <= t:
+                s, e, name = self.spans[i]
+                heapq.heappush(open_, (-s, e, name))
+                i += 1
+            while open_ and open_[0][1] <= t:
+                heapq.heappop(open_)
+            out.append(open_[0][2] if open_ else "")
+        return out
+
+
+def _union_s(intervals) -> float:
+    """Seconds covered by the union of [start_ns, end_ns) intervals."""
+    busy, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s >= end:
+            busy, end = busy + e - s, e
+        elif e > end:
+            busy, end = busy + e - end, e
+    return busy / 1e9

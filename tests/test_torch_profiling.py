@@ -1,6 +1,6 @@
 """``utils.profiling.trace`` and ``Trainer.train_epoch(profile_dir=...)`` on
 the CPU: ``None`` records nothing, a folder gets a Chrome trace that
-parses as JSON and holds the step's operators."""
+parses as JSON and holds the step's operators and its ``train.*`` spans."""
 
 import json
 
@@ -29,6 +29,11 @@ def test_train_epoch_writes_a_trace(tmp_path):
     assert len(files) == 1 and files[0].name.endswith(".pt.trace.json")
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any(e.get("name") == "aten::addmm" for e in events)
+    # the step's spans (no clip: grad_clip is 0)
+    spans = sorted((e["ts"], e["name"]) for e in events
+                   if e.get("ph") == "X" and e.get("name", "").startswith("train."))
+    assert [n for _, n in spans] == [
+        "train.forward", "train.backward", "train.adam"]
 
 
 def _tcfg():
