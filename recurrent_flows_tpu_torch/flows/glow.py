@@ -5,8 +5,9 @@ direction, ``g``/``sample`` in the sampling direction.
 A scale's K GlowSteps run one of three ways, the same in both directions:
 
 * the module path: per step the ``actnorm_invconv`` kernel (forward; a
-  plain product in reverse), three cuDNN convs and the
-  ``coupling_transform`` kernel;
+  plain product in reverse), three cuDNN convs on channel-major maps (the
+  scale's condition made channel-major once, ``coupling_condition``) and
+  the ``coupling_transform`` kernel;
 * ``GlowConfig.coupling_impl == 'fused'``: one ``glowstep`` launch per
   GlowStep;
 * ``GlowConfig.chain_impl`` 'all' (both directions) or 'sample' (reverse
@@ -52,7 +53,7 @@ from ..utils.numerics import (batch_reduce, normal_log_prob, split_feature,
                               squeeze2d, unsqueeze2d)
 from ..utils.profiling import span
 from .modules import (ActNorm, AffineCoupling, BatchNormFlow, Conv2dNorm, Conv2dZeros,
-                      InvConv, Split2d)
+                      InvConv, Split2d, to_channel_major)
 
 CHAIN_MAX_HW = 256
 
@@ -149,7 +150,9 @@ class GlowStep(nn.Module):
         return (y, ld) if g is None else (g.reshard(y), g.share(ld, y))
 
     def forward(self, x, condition, logdet=None, ddi: bool = False,
-                training: bool = True):
+                training: bool = True, condition_cm=None):
+        """``condition_cm``: ``condition`` channel-major, for the coupling
+        net (``ListGlow.coupling_condition``), or None."""
         if not ddi and self.fused_eligible(x, condition):
             y, ld = self._fused(x, condition, False)
             return y, (logdet + ld if logdet is not None else None)
@@ -161,12 +164,12 @@ class GlowStep(nn.Module):
             x, logdet = self.invconv(x, logdet)
         else:
             x, logdet = self.invconv(x, logdet, self.norm.bias, self.norm.logs)
-        return self.affine(x, condition, logdet, ddi)
+        return self.affine(x, condition, logdet, ddi, condition_cm)
 
-    def reverse(self, x, condition):
+    def reverse(self, x, condition, condition_cm=None):
         if self.fused_eligible(x, condition):
             return self._fused(x, condition, True)[0]
-        x, _ = self.affine.reverse(x, condition)
+        x, _ = self.affine.reverse(x, condition, condition_cm)
         if self.cfg.flow_norm == "batchnorm":
             return self.norm.reverse(self.invconv.reverse(x))
         return self.invconv.reverse(x, self.norm.bias, self.norm.logs)
@@ -251,6 +254,15 @@ class ListGlow(nn.Module):
         return {l: self.chain_params(l, reverse=True)[0]
                 for l in range(self.cfg.L) if self.chain_eligible(l, batch)}
 
+    def coupling_condition(self, l: int, x, condition, ddi: bool = False):
+        """Scale ``l``'s ``condition`` as its coupling nets take it,
+        channel-major, made once for the K steps on the module path; None
+        where they take no such copy: on a grid (the nets run NHWC there),
+        or where the steps go through the ``glowstep`` kernel."""
+        if grid() is not None or (not ddi and self.step(l, 0).fused_eligible(x, condition)):
+            return None
+        return to_channel_major(condition)
+
     # -- bijection --------------------------------------------------------
 
     def f(self, x, conditions: Sequence, logdet, ddi: bool = False,
@@ -274,9 +286,10 @@ class ListGlow(nn.Module):
                         z, ld = g.reshard(z), g.share(ld, z)
                     logdet = logdet + ld
                 else:
+                    cond = conditions[l]
+                    cond_cm = self.coupling_condition(l, z, cond, ddi)
                     for k in range(cfg.K):
-                        z, logdet = self.step(l, k)(z, conditions[l], logdet, ddi,
-                                                    training)
+                        z, logdet = self.step(l, k)(z, cond, logdet, ddi, training, cond_cm)
                 if l < cfg.L - 1:
                     z, logdet = getattr(self, f"split{l}")(z, conditions[l],
                                                            logdet, ddi)
@@ -300,8 +313,9 @@ class ListGlow(nn.Module):
                     x, _ = glowchain(x.contiguous(), conditions[l].contiguous(),
                                      chain[l], cfg.clamp_type, True)
                 else:
+                    cond_cm = self.coupling_condition(l, x, conditions[l])
                     for k in reversed(range(cfg.K)):
-                        x = self.step(l, k).reverse(x, conditions[l])
+                        x = self.step(l, k).reverse(x, conditions[l], cond_cm)
                 x = unsqueeze2d(x)
         return x
 

@@ -12,10 +12,25 @@ on its own input, sets its ``bias``/``logs`` from it in place, and uses
 the fresh values. A ``Conv2dNorm`` with a batch norm or no norm, and the
 ``BatchNormFlow`` step norm, have nothing to fold.
 
+Every map is NHWC except inside ``AffineCoupling``'s net, which runs
+channel-major: its input ``cat([z1, condition])`` and its two U-wide hidden
+maps are contiguous NCHW, and only its C-wide output comes back NHWC for
+the ``coupling_transform`` kernel. cuDNN has no channels-last fprop in
+float32 with TF32 off; handed NHWC memory it runs its NCHW kernels between
+transposes of its own, of the U-wide maps both ways and in the backward
+too. Channel-major, only the narrow maps move: z1 (C/2 channels) and the
+output (C) per step, the condition once per scale (``ListGlow`` passes it
+to its K steps as ``condition_cm``). ``AffineCoupling.channel_major_runs``
+counts the nets run so. cuDNN picks other backward kernels for NCHW maps,
+not all faster (the 1x1's weight gradient takes about twice as long at
+32x32), but a training step is faster in all (``PERF.md`` §6).
+
 On a (data x model) grid (``parallel.mesh``) every log-determinant term is
 this rank's share: per-pixel terms times ``pixel_share``, sums over a map
 through ``batch_reduce``/``Mesh.share``, and a ``BatchNormFlow`` uses its
-own rows of its per-position parameters.
+own rows of its per-position parameters. There the coupling net stays NHWC,
+since ``conv_nhwc``'s halo exchange works on NHWC rows
+(``AffineCoupling.nhwc_runs`` counts those nets).
 """
 
 from __future__ import annotations
@@ -30,6 +45,21 @@ from ..ops.glowstep import clamp
 from ..parallel.mesh import batch_mean, grid
 from ..utils.numerics import batch_reduce, normal_log_prob, pixel_share, split_feature
 from ..utils.running_stats import ema_, flow_stats_update
+
+
+def to_channel_major(x: torch.Tensor) -> torch.Tensor:
+    """An NHWC map as a contiguous [B, C, H, W] copy."""
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def _conv_cm(x, kernel, bias=None):
+    """kxk conv of a contiguous NCHW map, (k-1)//2 padding per side."""
+    return F.conv2d(x, kernel, bias, 1, (kernel.shape[-1] - 1) // 2)
+
+
+def _per_channel(v, channel_major: bool):
+    """A [C] parameter broadcast over an NCHW map, or as it is for NHWC."""
+    return v[:, None, None] if channel_major else v
 
 
 class ActNorm(nn.Module):
@@ -209,19 +239,29 @@ class Conv2dNorm(nn.Module):
             self.bn_scale = nn.Parameter(torch.ones(out_channels, device=device))
             self.bn_bias = nn.Parameter(torch.zeros(out_channels, device=device))
 
-    def forward(self, x, ddi: bool = False):
+    def forward(self, x, ddi: bool = False, channel_major: bool = False):
+        """x NHWC, or with ``channel_major`` contiguous NCHW (the coupling
+        net's; the output then is too)."""
+        conv = _conv_cm if channel_major else conv_nhwc
         if self.norm != "actnorm":
-            y = conv_nhwc(x, self.conv.kernel, self.conv.bias)
+            y = conv(x, self.conv.kernel, self.conv.bias)
             if self.norm == "batchnorm":
-                mean = batch_mean(y, (0, 1, 2), keepdim=True)
-                var = batch_mean((y - mean).square(), (0, 1, 2), keepdim=True)
-                y = (y - mean) * torch.rsqrt(var + 1e-5) * self.bn_scale + self.bn_bias
+                axes = (0, 2, 3) if channel_major else (0, 1, 2)
+                mean = batch_mean(y, axes, keepdim=True)
+                var = batch_mean((y - mean).square(), axes, keepdim=True)
+                scale, bias = (_per_channel(p, channel_major)
+                               for p in (self.bn_scale, self.bn_bias))
+                y = (y - mean) * torch.rsqrt(var + 1e-5) * scale + bias
             return y
         if ddi:
-            return self.actnorm(conv_nhwc(x, self.conv.kernel), ddi=True)[0]
+            y = conv(x, self.conv.kernel)
+            if not channel_major:
+                return self.actnorm(y, ddi=True)[0]
+            # ActNorm takes channels last: an NHWC view of the NCHW map, whose
+            # elementwise result keeps the NCHW memory
+            return self.actnorm(y.permute(0, 2, 3, 1), ddi=True)[0].permute(0, 3, 1, 2)
         g = torch.exp(self.actnorm.logs)
-        return conv_nhwc(x, self.conv.kernel * g[:, None, None, None],
-                         self.actnorm.bias * g)
+        return conv(x, self.conv.kernel * g[:, None, None, None], self.actnorm.bias * g)
 
 
 class Conv2dZeros(nn.Module):
@@ -235,17 +275,24 @@ class Conv2dZeros(nn.Module):
                            device=device)
         self.logs = nn.Parameter(torch.zeros(out_channels, device=device))
 
-    def forward(self, x):
+    def forward(self, x, channel_major: bool = False):
+        """x NHWC, or with ``channel_major`` contiguous NCHW (the output
+        too)."""
         g = torch.exp(self.logs * 3.0)
-        return conv_nhwc(x, self.conv.kernel * g[:, None, None, None],
-                         self.conv.bias * g)
+        conv = _conv_cm if channel_major else conv_nhwc
+        return conv(x, self.conv.kernel * g[:, None, None, None], self.conv.bias * g)
 
 
 class AffineCoupling(nn.Module):
     """Conditional affine coupling with 4 clamps: forward
     z2' = (z2 + shift)·e^s, logdet += Σ s; both directions end in the
     ``coupling_transform`` kernel. ``norm`` is the norm of the net's two
-    ``Conv2dNorm`` (GlowConfig.coupling_norm)."""
+    ``Conv2dNorm`` (GlowConfig.coupling_norm). The net runs channel-major
+    off a grid, NHWC on one (module docstring); ``channel_major_runs`` and
+    ``nhwc_runs`` count the nets run each way."""
+
+    channel_major_runs = 0
+    nhwc_runs = 0
 
     def __init__(self, x_channels: int, cond_channels: int,
                  hidden_units: int = 256, non_lin: str = "relu",
@@ -265,11 +312,30 @@ class AffineCoupling(nn.Module):
         else:
             self.scale = self.scale_shift = None
 
-    def _transform(self, x, condition, reverse: bool, ddi: bool = False):
+    def _net(self, z1, condition, ddi: bool, condition_cm=None):
+        """The net's output [B, H, W, C], contiguous NHWC. Off a grid the net
+        runs on contiguous NCHW maps: ``condition_cm`` is ``condition`` so
+        (made here where not given)."""
+        cm = grid() is None
+        if cm:
+            AffineCoupling.channel_major_runs += 1
+            if condition_cm is None:
+                condition_cm = to_channel_major(condition)
+            # cat reads z1's strided view; its output is contiguous NCHW
+            h = torch.cat([z1.permute(0, 3, 1, 2), condition_cm], 1)
+        else:
+            AffineCoupling.nhwc_runs += 1
+            h = torch.cat([z1, condition], -1)
+        h = act(self.net0(h, ddi, channel_major=cm), self.non_lin)
+        h = act(self.net1(h, ddi, channel_major=cm), self.non_lin)
+        out = self.net2(h, channel_major=cm)
+        return out.permute(0, 2, 3, 1).contiguous() if cm else out
+
+    def _transform(self, x, condition, reverse: bool, ddi: bool = False,
+                   condition_cm=None):
         z1, z2 = split_feature(x, "split")
-        h = act(self.net0(torch.cat([z1, condition], -1), ddi), self.non_lin)
-        h = act(self.net1(h, ddi), self.non_lin)
-        shift, log_scale = split_feature(self.net2(h), "cross")
+        shift, log_scale = split_feature(self._net(z1, condition, ddi, condition_cm),
+                                         "cross")
         s = clamp(log_scale, self.clamp_type, self.scale, self.scale_shift)
         # z2 and shift are strided views ('split' and 'cross' halves); the
         # kernel reads them where they lie
@@ -277,13 +343,13 @@ class AffineCoupling(nn.Module):
         g = grid()
         return torch.cat([z1, z2], -1), (ld if g is None else g.share(ld, z2))
 
-    def forward(self, x, condition, logdet=None, ddi: bool = False):
-        y, ld = self._transform(x, condition, False, ddi)
+    def forward(self, x, condition, logdet=None, ddi: bool = False, condition_cm=None):
+        y, ld = self._transform(x, condition, False, ddi, condition_cm)
         return y, (logdet + ld if logdet is not None else None)
 
-    def reverse(self, x, condition):
+    def reverse(self, x, condition, condition_cm=None):
         """(x, coupling logdet [B]) of the inverse coupling."""
-        return self._transform(x, condition, True)
+        return self._transform(x, condition, True, condition_cm=condition_cm)
 
 
 class Split2d(nn.Module):

@@ -6,8 +6,12 @@ so ``convert.from_flax`` maps each leaf by its path; conv kernels are
 stored OIHW for ``F.conv2d``, transposed-conv kernels (I, O, kH, kW)
 spatially flipped for ``F.conv_transpose2d`` (``convert`` does both), and a
 ``Dense`` kernel keeps flax's [in, out] layout (``x @ kernel``), so it
-converts as it is. Convolutions take NHWC and run on the NCHW view of the
-same memory (channels-last strides), so no copy is made.
+converts as it is. Convolutions take NHWC and hand ``F.conv2d`` the NCHW
+view of the same memory (channels-last strides). PyTorch copies nothing,
+but in float32 with TF32 off cuDNN has no channels-last fprop on the H100:
+it runs its NCHW kernel between transposes of its own (input and output,
+and their gradients in the backward). The flow's coupling net, whose maps
+are the widest, runs channel-major instead (``flows.modules``).
 
 Inside a train step on a (data x model) grid (``parallel.mesh.grid``) the
 spatial ops work on this rank's rows of every map: a 3x3 conv pads its

@@ -65,6 +65,9 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel", "cudaGraphLaunch")
 # the first part of every name given to ``span``
 SPAN_LAYERS = ("train.", "rfn.", "glow.", "serve.")
+# parts of the names of cuDNN's own layout transposes, which it runs around
+# an NCHW kernel it is handed channels-last memory for
+TRANSPOSE_KERNELS = ("nhwcToNchw", "nchwToNhwc")
 
 _OFF = contextlib.nullcontext()
 
@@ -195,9 +198,10 @@ class SpanReading:
     def _launches(calls) -> int:
         return sum(1 for _, _, name in calls if name in LAUNCH_CALLS)
 
-    def _device_s(self, calls) -> float:
+    def _device_s(self, calls, kernels: tuple = ()) -> float:
         corr = {c for _, c, _ in calls}
-        return _union_s((s, e) for s, e, _, c in self.ops if c in corr)
+        return _union_s((s, e) for s, e, name, c in self.ops
+                        if c in corr and _named(name, kernels))
 
     def count(self, prefix: str) -> int:
         """Spans opened whose name starts with ``prefix``."""
@@ -216,18 +220,23 @@ class SpanReading:
         span named ``prefix...``."""
         return self._device_s(self._calls_in(lambda name: name.startswith(prefix)))
 
-    def busy_s(self) -> float:
-        """Seconds of the union of every device operation."""
-        return _union_s((s, e) for s, e, _, _ in self.ops)
+    def busy_s(self, kernels: tuple = ()) -> float:
+        """Seconds of the union of every device operation; with
+        ``kernels``, of those whose names hold one of them."""
+        return _union_s((s, e) for s, e, name, _ in self.ops if _named(name, kernels))
 
-    def table(self) -> dict:
+    def table(self, kernels: tuple = ()) -> dict:
         """{span name: dict(count, launches, device_s)}, each name's own
-        ranges (a nested span counts in its parent's row too)."""
+        ranges (a nested span counts in its parent's row too); with
+        ``kernels`` a row also has ``kernels_s``, the device seconds of the
+        span's operations whose names hold one of them."""
         out = {}
         for name in sorted({name for _, _, name in self.spans}):
             calls = self._calls_in(lambda n, name=name: n == name)
             out[name] = dict(count=sum(1 for _, _, n in self.spans if n == name),
                              launches=self._launches(calls), device_s=self._device_s(calls))
+            if kernels:
+                out[name]["kernels_s"] = self._device_s(calls, kernels)
         return out
 
     def idle_gaps(self, limit: int = 10) -> list:
@@ -260,6 +269,11 @@ class SpanReading:
                 heapq.heappop(open_)
             out.append(open_[0][2] if open_ else "")
         return out
+
+
+def _named(name: str, kernels: tuple) -> bool:
+    """``name`` holds one of ``kernels`` (any name where there are none)."""
+    return not kernels or any(k in name for k in kernels)
 
 
 def _union_s(intervals) -> float:

@@ -16,7 +16,8 @@ launches and the share of them inside a span, each span's count, launches
 and device ms, the phase sums (``forward_ms``, ``backward_ms``,
 ``optimizer_ms`` = clip + Adam, ``optimizer_launches``, ``flow_forward_ms``,
 ``prepare_chain_launches``, ``frame_launches`` a predicted frame), the
-idle gaps named by span, and the device events of ``record_function``
+device ms of cuDNN's layout transposes (``transpose_ms``: in all, and per
+span; ``utils.profiling.TRANSPOSE_KERNELS``), the idle gaps named by span, and the device events of ``record_function``
 ranges that the trace holds (``gpu_user_annotation``). Needs a CUDA card.
 """
 
@@ -34,7 +35,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from benchmark import harness  # noqa: E402
-from recurrent_flows_tpu_torch.utils.profiling import SpanReading  # noqa: E402
+from recurrent_flows_tpu_torch.utils.profiling import (  # noqa: E402
+    TRANSPOSE_KERNELS, SpanReading)
 
 
 def read(prof, units: int, n_pred: int | None) -> dict:
@@ -43,9 +45,11 @@ def read(prof, units: int, n_pred: int | None) -> dict:
         "train.forward", "train.backward", "train.clip", "train.adam", "glow.log_prob")}
     out = dict(units=units, busy_ms=1e3 * r.busy_s() / units, launches=r.launches() / units,
                in_spans=r.launches_in("") / max(r.launches(), 1),
+               transpose_ms=1e3 * r.busy_s(TRANSPOSE_KERNELS) / units,
                spans={name: dict(count=row["count"] / units, launches=row["launches"] / units,
-                                 device_ms=1e3 * row["device_s"] / units)
-                      for name, row in r.table().items()},
+                                 device_ms=1e3 * row["device_s"] / units,
+                                 transpose_ms=1e3 * row["kernels_s"] / units)
+                      for name, row in r.table(TRANSPOSE_KERNELS).items()},
                idle_gaps_by_span=r.idle_gaps())
     if r.count("train."):
         out.update(forward_ms=ms["train.forward"], backward_ms=ms["train.backward"],

@@ -566,3 +566,33 @@ def test_coupling_and_folded_1x1_kernels_at_the_grid_shapes(cuda, level):
         _close(ld, ref_ld, 1e-4)
         assert torch.equal(out, out2) and torch.equal(ld, ld2)
     _ainv_agrees(cuda, 30 * (hw // 2) * hw, c, orthogonal=True)
+
+
+def test_coupling_net_runs_without_layout_transposes(cuda):
+    """One scale-1 coupling of rfn_mnist_production (x [8, 32, 32, 4], 16
+    condition channels, U=256), forward and backward, profiled: the net runs
+    channel-major, so cuDNN runs none of its NHWC<->NCHW transposes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from recurrent_flows_tpu_torch.flows.modules import AffineCoupling
+    from recurrent_flows_tpu_torch.utils.profiling import TRANSPOSE_KERNELS
+
+    m = AffineCoupling(4, 16, 256, device="cuda", generator=cuda)
+    x = torch.randn(8, 32, 32, 4, generator=cuda, device="cuda", requires_grad=True)
+    cond = torch.randn(8, 32, 32, 16, generator=cuda, device="cuda", requires_grad=True)
+
+    def step():
+        y, ld = m(x, cond, torch.zeros(8, device="cuda"))
+        (y.square().sum() + ld.sum()).backward()
+
+    step()  # cuDNN's plans and the coupling kernel's build
+    torch.cuda.synchronize()
+    runs = AffineCoupling.channel_major_runs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    assert AffineCoupling.channel_major_runs == runs + 1
+    kernels = [ev.name() for ev in prof.profiler.kineto_results.events()
+               if str(ev.device_type()).endswith("CUDA") and not ev.is_user_annotation()]
+    assert any("coupling_kernel" in k for k in kernels), kernels  # the trace holds kernels
+    assert not [k for k in kernels if any(t in k for t in TRANSPOSE_KERNELS)], kernels

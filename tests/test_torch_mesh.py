@@ -291,6 +291,21 @@ def test_gathered_rows_equal_the_jax_step(grids, step, grid):
         _check_exchanges(got, step, f"{step} rank {r}")
 
 
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_coupling_nets_run_nhwc_on_a_grid(grids, grid):
+    """Every coupling net of a grid's step takes the NHWC path (its convs
+    exchange halo rows): per GlowStep of the module path one net, 4 a frame
+    (L=2, K=2), the loss's 2 frames twice (recomputed); none with the chain
+    kernel on every scale."""
+    folder, _ = grids
+    for step in STEPS[grid]:
+        if not step.startswith("rfn"):
+            continue
+        for r, got in enumerate(_ranks(folder[grid], step, GRIDS[grid][0])):
+            want = 0 if step == "rfn_chain" else 16
+            assert got["couplings"] == dict(channel_major=0, nhwc=want), (grid, step, r)
+
+
 @pytest.mark.parametrize("family", ["SRNN", "VRNN", "SVG"])
 def test_families_on_1x2_equal_the_one_process_step(grids, family):
     folder, refs = grids

@@ -163,6 +163,18 @@ def test_reading_follows_correlation_to_the_device():
     assert t["train.backward"] == dict(count=1, launches=2, device_s=pytest.approx(80e-9))
 
 
+def test_reading_sums_named_kernels_by_span():
+    """``table(kernels)`` and ``busy_s(kernels)`` keep to the operations
+    whose names hold one of ``kernels`` (the script's ``transpose_ms``)."""
+    r = _reading()
+    t = r.table(("k2", "k4"))
+    assert t["train.backward"]["kernels_s"] == pytest.approx(70e-9)  # not the copy
+    assert t["rfn.step"]["kernels_s"] == pytest.approx(30e-9)
+    assert t["train.forward"]["kernels_s"] == 0.0
+    assert r.busy_s(("k2", "k5")) == pytest.approx(80e-9)
+    assert "kernels_s" not in r.table()["train.backward"]
+
+
 def test_reading_names_idle_gaps_by_the_innermost_span():
     gaps = dict(_reading().idle_gaps())
     # 60->200 ends at k2 (launched in rfn.step), 240->260 at k4 (in

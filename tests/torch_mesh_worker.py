@@ -9,8 +9,9 @@ draws, beta, lr, remat) and ``adjoints`` (whether this grid checks the
 collectives). Joins the group, makes the grid with ``make_mesh`` and per
 step builds a ``Trainer`` on it (no data-dependent init) and takes one
 step on its batch slice with the global draws replayed; writes
-``<dir>/<name>_rank<r>.pt`` (metrics, state, the reduced gradients and
-the exchanges the step counted). With ``adjoints``, writes
+``<dir>/<name>_rank<r>.pt`` (metrics, state, the reduced gradients, the
+exchanges the step counted and the coupling nets it ran channel-major and
+NHWC). With ``adjoints``, writes
 ``<dir>/adjoints_rank<r>.pt``: for ``halo`` (both sides and top only),
 ``gather_rows`` and ``model_sum`` the largest forward error against the
 slice of the padded global tensor, and the two sides of the dot-product
@@ -26,6 +27,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from recurrent_flows_tpu_torch import models
+from recurrent_flows_tpu_torch.flows import AffineCoupling
 from recurrent_flows_tpu_torch.parallel import make_mesh, spatial_constraint
 from recurrent_flows_tpu_torch.training import Trainer
 from recurrent_flows_tpu_torch.utils import NoiseSource
@@ -75,10 +77,13 @@ def step(mesh, c) -> dict:
     model.load_state_dict(c["state"])
     tr = Trainer(model, c["tcfg"], [c["batch"]], device="cpu", dp=mesh).build(run_ddi=False)
     mesh.reset_counts()
+    before = AffineCoupling.channel_major_runs, AffineCoupling.nhwc_runs
     metrics = tr.train_step(mesh.local(c["batch"]), c["beta"], c["lr"],
                             noise=NoiseSource(replay=c["draws"]))
+    couplings = dict(channel_major=AffineCoupling.channel_major_runs - before[0],
+                     nhwc=AffineCoupling.nhwc_runs - before[1])
     return dict(metrics={k: float(v) for k, v in metrics.items()},
-                state=tr.model.state_dict(), counts=dict(mesh.counts),
+                state=tr.model.state_dict(), counts=dict(mesh.counts), couplings=couplings,
                 grads={n: p.grad for n, p in tr.model.named_parameters()
                        if p.grad is not None})
 
